@@ -1,11 +1,11 @@
 """Chunked (streaming) device compression: bounded host memory for any
 file size.
 
-The reference CLI works in 4MB reads (lz4io.c:497-542); the TPU-native
+The reference CLI works in 4MB reads (lz4io.c:497-542); the device
 analog is DeviceFrameCompressor: every chunk's blocks compress on device
-as one linked chain, and the 64KB window carries across chunks through
-the linked kernel's dictionary-prefix seeding (LZ4_loadDict parity,
-lz4.c:944-948), so the output matches whole-buffer compression.
+as one linked chain, and the 64KB window carries across chunks as the
+linked scan's dictionary prefix (LZ4_loadDict parity, lz4.c:944-948), so
+the output matches whole-buffer compression.
 """
 import io
 import sys

@@ -1,11 +1,11 @@
-"""One huge linked LZ4F frame, compressed data-parallel over a TPU mesh.
+"""One huge linked LZ4F frame, compressed data-parallel over a device mesh.
 
 The reference's multi-core story is N independent OS processes on N
-separate files (README.md:39-45). The TPU-native version shards ONE
-stream's 64KB blocks over the mesh: each shard's first block carries the
-preceding 64KB of input as a seeded dictionary prefix (LZ4_loadDict
-parity), so the assembled frame has full linked-window ratio with zero
-inter-chip communication, and any LZ4F decoder reads it.
+separate files (README.md:39-45). Here ONE stream's 64KB blocks are
+sharded over the mesh: each shard's first block carries the preceding
+64KB of input as a dictionary prefix (LZ4_loadDict parity), so the
+assembled frame has full linked-window ratio with zero inter-device
+communication, and any LZ4F decoder reads it.
 
 Run on CPU with a virtual mesh:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

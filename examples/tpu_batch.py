@@ -1,6 +1,6 @@
-"""TPU device pipeline: batch-compress blocks on-chip, shard over a mesh.
+"""Device pipeline: batch-compress blocks on the device, shard over a mesh.
 
-Runs on a real TPU when present, otherwise on a virtual CPU mesh
+Runs on the GPU when present, otherwise on a virtual CPU mesh
 (XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu).
 """
 

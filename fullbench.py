@@ -1,19 +1,18 @@
 #!/usr/bin/env python
 """Per-entry-point micro-benchmark (the reference's fullbench analog,
 programs/fullbench.c): one MB/s line per public codec entry point, on the
-host oracle codec, the native helpers, and (when a TPU is present) the
-Pallas kernels and device frame pipeline.
+host oracle codec, the native helpers, and the GPU kernels and device
+frame pipeline.  Every device line names the device it ran on; without a
+GPU the device section fails instead of reporting host numbers.
 
 Usage: python fullbench.py [--mb N] [--host-only]
 """
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/lz4t_jax_cache")
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
@@ -29,8 +28,9 @@ def timeit(fn, iters=3):
     return best
 
 
-def report(name, nbytes, secs):
-    print(f"{name:<44}{nbytes / 1e6 / max(secs, 1e-12):>10.1f} MB/s")
+def report(name, nbytes, secs, where="host"):
+    print(f"{name:<44}{nbytes / 1e6 / max(secs, 1e-12):>10.1f} MB/s"
+          f"  [{where}]")
 
 
 def main():
@@ -96,9 +96,17 @@ def main():
         return
 
     import jax
-    if jax.default_backend() != "tpu":
-        print("== no TPU present; skipping kernel benches ==")
-        return
+    if jax.default_backend() != "gpu":
+        sys.exit("fullbench: JAX found no GPU; the device section needs "
+                 "the card (--host-only runs the host section alone)")
+    from lz4_tpu.runtime import device_label, use_compile_cache
+    use_compile_cache()
+    dev = device_label()
+    where = (f"{dev['platform']} {dev['kind']} x{dev['count']}, "
+             f"{dev['card']}")
+
+    def dreport(name, nbytes, secs):
+        report(name, nbytes, secs, where)
 
     import jax.numpy as jnp
     from lz4_tpu.kernels.common import np_pack_rows
@@ -107,7 +115,7 @@ def main():
         encode_blocks
     from lz4_tpu.tpu import compress_frame_device, decompress_frame_device
 
-    print("== Pallas kernels (device-resident, 64KB blocks) ==")
+    print("== device kernels (device-resident, 64KB blocks) ==")
     packed, lens = np_pack_rows(chunks, chunk)
     pd, ld = jnp.asarray(packed), jnp.asarray(lens)
 
@@ -118,36 +126,21 @@ def main():
         return c, cl
 
     comp_d, clen_d = enc()
-    report("kernels.encode_blocks", n, timeit(lambda: enc()))
+    dreport("kernels.encode_blocks", n, timeit(lambda: enc()))
 
     def dec():
         _, ol = decode_blocks(comp_d, clen_d, chunk)
         np.asarray(ol)
     dec()
-    report("kernels.decode_blocks", n, timeit(dec))
+    dreport("kernels.decode_blocks", n, timeit(dec))
 
     from lz4_tpu.kernels.decode_kernel import decode_blocks_linked
-    from lz4_tpu.kernels.hc_kernel import encode_blocks_hc
-    from lz4_tpu.kernels.xxh32_kernel import xxh32_batch
-
-    def xxh():
-        xxh32_batch(pd, lens, 0)
-    xxh()
-    report("kernels.xxh32_batch (VPU)", n, timeit(xxh))
-
-    from lz4_tpu.kernels.xxh64_kernel import xxh64_batch
-
-    def xxh64():
-        xxh64_batch(pd, lens, 0)
-    xxh64()
-    report("kernels.xxh64_batch (VPU, 64b as hi/lo pairs)", n,
-           timeit(xxh64))
 
     def declink():
         _, ol = decode_blocks_linked(comp_d, clen_d, chunk)
         np.asarray(ol)
     declink()
-    report("kernels.decode_blocks_linked", n, timeit(declink))
+    dreport("kernels.decode_blocks_linked", n, timeit(declink))
 
     from lz4_tpu.kernels.decode_kernel import decode_blocks_sg
 
@@ -158,19 +151,7 @@ def main():
         out, ol = decode_blocks_sg(comp_d, clen_d, sg_sizes)
         np.asarray(ol)
     sgdec()
-    report("kernels.decode_blocks_sg", n, timeit(sgdec))
-
-    from lz4_tpu.kernels.destsize_kernel import encode_blocks_dest_size
-
-    half_caps = jnp.asarray(np.maximum(np.asarray(lens) // 2, 64)
-                            .astype(np.int32))
-
-    def encds():
-        val = bytes_to_val32_rows(pd, chunk)
-        _, ol, cons = encode_blocks_dest_size(val, ld, half_caps)
-        np.asarray(cons)
-    encds()
-    report("kernels.encode_dest_size (cap=n/2)", n, timeit(encds))
+    dreport("kernels.decode_blocks_sg", n, timeit(sgdec))
 
     from lz4_tpu.kernels.decode_kernel import decode_blocks_dest_size
 
@@ -181,36 +162,15 @@ def main():
                                               chunk // 2)
         np.asarray(cons)
     decds()
-    report("kernels.decode_dest_size (cap=n/2, resumable)", n // 2,
+    dreport("kernels.decode_dest_size (cap=n/2, resumable)", n // 2,
            timeit(decds))
-
-    from lz4_tpu.sg import sg_compress
-
-    sg_ins = chunks
-    sg_caps = [chunk + 4096] * (len(chunks) + 1)
-
-    def sgenc():
-        sg_compress(sg_ins, sg_caps, use_device=True)
-    sgenc()
-    report("sg.sg_compress(use_device=True)", n, timeit(sgenc, 1))
-
-    hc_n = min(n, 8 * chunk)          # HC is chain-bound: bench a slice
-    hc_rows = pd[:hc_n // chunk]
-    hc_lens = ld[:hc_n // chunk]
-
-    def hc():
-        val = bytes_to_val32_rows(hc_rows, chunk)
-        _, ol = encode_blocks_hc(val, hc_lens, 9)
-        np.asarray(ol)
-    hc()
-    report("kernels.encode_blocks_hc (HC9)", hc_n, timeit(hc, 1))
 
     # stream decoder: raw 256KB-block frame at arbitrary byte offsets
     from lz4_tpu.frame import FramePreferences
     from lz4_tpu.tpu import _decompress_frame_device_stream
     from lz4_tpu.frame import decode_frame_header
 
-    # a real 256KB-block frame via the host codec (the stream kernel
+    # a real 256KB-block frame via the host codec (the stream decoder
     # engages for >64KB blocks)
     from lz4_tpu.frame import FrameCompressor
     fc = FrameCompressor(FramePreferences(block_size_id=5))
@@ -220,24 +180,15 @@ def main():
     def sdec():
         _decompress_frame_device_stream(frame5, info5)
     sdec()
-    report("kernels.decode_stream (256KB blocks, raw frame)", n,
+    dreport("kernels.decode_stream (256KB blocks, raw frame)", n,
            timeit(sdec, 1))
 
     print("== device frame pipeline (incl. host assembly + transfers) ==")
     fr = compress_frame_device(data)
-    report("tpu.compress_frame_device", n,
+    dreport("tpu.compress_frame_device", n,
            timeit(lambda: compress_frame_device(data), 1))
-    report("tpu.decompress_frame_device", n,
+    dreport("tpu.decompress_frame_device", n,
            timeit(lambda: decompress_frame_device(fr), 1))
-
-    from lz4_tpu.tpu import compress_frame_device_hc
-    hc_data = data[:min(n, 2 * chunk)]
-
-    def hcframe():
-        compress_frame_device_hc(hc_data, level=9)
-    hcframe()
-    report("tpu.compress_frame_device_hc (HC9)", len(hc_data),
-           timeit(hcframe, 1))
 
 
 if __name__ == "__main__":

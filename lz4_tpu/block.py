@@ -12,8 +12,8 @@ Name-for-name parity with the reference's simple functions
 
 Single buffers route to the exact host codec (``ops/block_np.py`` —
 one Python call's latency beats a device round trip for one block);
-*batches* are where the TPU path pays off: :func:`compress_batch` /
-:func:`decompress_batch` run every block as one Pallas grid step
+*batches* are where the device path pays off: :func:`compress_batch` /
+:func:`decompress_batch` run every block as one kernel program
 (``tpu.encode_batch`` / ``tpu.decode_batch``).  Streaming (dictionary)
 modes live in :mod:`lz4_tpu.stream`; frames in :mod:`lz4_tpu.frame`.
 """
@@ -138,8 +138,8 @@ def decompress_fast(comp: bytes, original_size: int,
 
 def compress_batch(buffers: List[bytes], block_size: int = 65536,
                    acceleration: int = 1, min_match: int = 4):
-    """Batch compression on the device: every buffer is one grid step of
-    the Pallas encode kernel.  Returns a list of compressed blocks.
+    """Batch compression on the device: every buffer is one program of
+    the encode kernel.  Returns a list of compressed blocks.
 
     This is the TPU-native payoff surface — use it where the reference
     would loop ``LZ4_compress_default`` over chunks."""
@@ -153,7 +153,7 @@ def compress_batch(buffers: List[bytes], block_size: int = 65536,
 
 def decompress_batch(comp_list: List[bytes], out_cap: int,
                      out_lens: Optional[List[int]] = None):
-    """Batch decode on the device (one grid step per block).  Returns a
+    """Batch decode on the device (one kernel program per block).  Returns a
     list of decoded byte strings; raises on any malformed block."""
     from .tpu import decode_batch
 

@@ -28,7 +28,7 @@ from .io import (
 )
 
 USAGE = f"""\
-*** tpu-lz4 v{__version__}, TPU-native LZ4 CLI ***
+*** tpu-lz4 v{__version__}, GPU-accelerated LZ4 CLI ***
 Usage: lz4t [arg] [input] [output]
 
 input/output  : files or `-` for stdin/stdout
@@ -51,7 +51,7 @@ Arguments:
  --[no-]frame-crc : content checksum (default: enabled)
  --[no-]sparse    : sparse file support on decode (default: enabled)
  --min-match=N    : drop matches shorter than N bytes (N>=4; larger output,
-                    proportionally faster decode -- TPU-side speed lever)
+                    proportionally faster decode -- a device speed lever)
  -b#          : benchmark file(s) at level #
  -i#          : iterations for benchmark (default: 3)
  -q / -v      : quieter / more verbose
@@ -110,6 +110,7 @@ def _bench(paths, prefs: IoPrefs, level: int, iterations: int) -> int:
     from .hc import compress_hc_block
     from .ops.block_np import compress_block, decompress_block
     from .io import _device_available
+    from .runtime import device_label
 
     min_s = float(os.environ.get("LZ4T_BENCH_SECONDS", "2.0"))
     # -B sets the chunk size like the reference's bench (bench.c:107);
@@ -121,41 +122,14 @@ def _bench(paths, prefs: IoPrefs, level: int, iterations: int) -> int:
                   for i in range(0, len(data), chunk_size)] or [b""]
         crc0 = xxh32(data)
         use_device = _device_available()
+        if use_device and level < 3:
+            dev = device_label()
+            where = (f"{dev['platform']} {dev['kind']} x{dev['count']}, "
+                     f"{dev['card']}")
+        else:
+            where = "host codec"
 
-        if use_device and level >= 3:
-            # HC levels: the device HC kernel (ratio parity with
-            # lz4hc.c; see docs/ARCHITECTURE.md for the speed envelope)
-            import jax.numpy as _jnp
-            from .kernels.common import np_pack_rows
-            from .kernels.encode_kernel import bytes_to_val32_rows
-            from .kernels.hc_kernel import encode_blocks_hc
-            from .tpu import fetch_byte_rows, decode_batch
-            bs = 65536
-            blocks = [data[i:i + bs] for i in range(0, len(data), bs)] \
-                or [b""]
-            packed, lens_np = np_pack_rows(blocks, bs)
-            val = bytes_to_val32_rows(_jnp.asarray(packed), bs)
-
-            def enc_once():
-                out, olen = encode_blocks_hc(val, _jnp.asarray(lens_np),
-                                             level)
-                return out, _np.asarray(olen)
-
-            rate_c, (comp_rows_d, comp_lens) = _timed_rate(
-                enc_once, len(data), iterations, min_s)
-            comp_rows = fetch_byte_rows(comp_rows_d)
-            comp = [comp_rows[i, :comp_lens[i]].astype("uint8").tobytes()
-                    if comp_lens[i] < len(blocks[i]) else None
-                    for i in range(len(blocks))]
-            comp_size = sum(int(l) if c is not None else len(blocks[i])
-                            for i, (c, l) in enumerate(zip(comp, comp_lens)))
-            todo = [c for c in comp if c is not None]
-            rate_d, out = _timed_rate(lambda: decode_batch(todo, bs),
-                                      len(data), iterations, min_s)
-            it = iter(out)
-            rebuilt = b"".join(next(it) if c is not None else blocks[i]
-                               for i, c in enumerate(comp))
-        elif use_device:
+        if use_device and level < 3:
             # fast levels: the linked-chain codecs (the same kernels the
             # frame pipeline uses); chunking matches the reference's
             # whole-chunk LZ4_compress semantics at 64KB window ratio
@@ -219,7 +193,7 @@ def _bench(paths, prefs: IoPrefs, level: int, iterations: int) -> int:
         print(f"{os.path.basename(path):<20}:{len(data):>9} ->"
               f"{comp_size:>9} ({100.0 * comp_size / n:6.2f}%),"
               f"{rate_c / 1e6:8.1f} MB/s,"
-              f"{rate_d / 1e6:8.1f} MB/s")
+              f"{rate_d / 1e6:8.1f} MB/s  [{where}]")
     return 0
 
 
@@ -359,6 +333,11 @@ def main(argv=None) -> int:
                 j += 1
             continue
         files.append(a)
+
+    from .io import _device_available
+    from .runtime import use_compile_cache
+    if _device_available():
+        use_compile_cache()
 
     if bench_mode:
         if not files:

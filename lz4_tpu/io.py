@@ -7,11 +7,11 @@ non-LZ4 data, legacy-format encode/decode (lz4io.c:344-413, 730-779),
 sparse-file writing that seeks over zero runs (lz4io.c:641-726), and
 multi-file operation (lz4io.c:596-624).
 
-The block codec is chosen per call: with a TPU present, fast levels run
-the device pipeline (chunked 4MB reads, linked or independent), HC
-levels run the device HC kernel, and decode routes through the batch/
-linked/stream kernels (any block size, legacy included); the host codec
-covers everything otherwise (no-JAX environments, forced CPU).
+The block codec is chosen per call: with a GPU present, fast levels run
+the device pipeline (chunked 4MB reads, linked or independent) and
+decode routes through the device decoder (any block size, legacy
+included); HC levels, and everything on a machine without a GPU, run the
+host codec.
 """
 
 from __future__ import annotations
@@ -63,13 +63,12 @@ class IoPrefs:
 
 
 def _device_available() -> bool:
+    """True when JAX's default backend is the GPU.  A backend that fails
+    to start raises; it is not read as "no device"."""
     if os.environ.get("LZ4TPU_FORCE_CPU", "0") == "1":
         return False
-    try:
-        import jax
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+    import jax
+    return jax.default_backend() == "gpu"
 
 
 def _prefs_to_frame(p: IoPrefs, content_size: Optional[int]) -> FramePreferences:
@@ -145,25 +144,8 @@ def compress_stream(src: BinaryIO, dst: BinaryIO, prefs: IoPrefs,
         # chained streaming kernel at its 64KB window granularity
         use_device = _device_available()
 
-    if use_device and prefs.level >= 3:
-        # HC levels: measured-cost routing (round 4).  The device HC
-        # kernel runs ~3.4 MB/s at level 9 (ratio within 1.3% of
-        # lz4hc.c; 64MB in ~20s — scratch/hc_ab.py); the exact host
-        # oracle is ~100x slower still.  Device wins whenever the input
-        # amortizes the kernel compile (~40s cold), so small inputs
-        # stay on host; LZ4TPU_HC_DEVICE_MIN overrides the crossover.
-        data = src.read()
-        hc_min = int(os.environ.get("LZ4TPU_HC_DEVICE_MIN",
-                                    str(1 << 20)))
-        if len(data) >= hc_min:
-            from .tpu import compress_frame_device_hc
-            fp = _prefs_to_frame(prefs,
-                                 len(data) if prefs.content_size else None)
-            frame = compress_frame_device_hc(data, fp, level=prefs.level)
-            dst.write(frame)
-            return len(data), len(frame)
-        use_device = False
-        src = io.BytesIO(data)
+    if prefs.level >= 3:
+        use_device = False      # HC levels run the host codec (hc.py)
 
     if use_device:
         if prefs.block_linked and spec.BLOCK_SIZES[prefs.block_size_id] \
@@ -375,11 +357,13 @@ def decompress_stream(src: BinaryIO, dst, prefs: IoPrefs) -> tuple[int, int]:
 
 def _decode_one_frame(data: bytes, prefs: IoPrefs, use_device: bool):
     if use_device:
-        from .tpu import DeviceLayoutUnsupported, decompress_frame_device
+        from .tpu import DeviceLayoutUnsupported, \
+            decompress_frame_device, note_host_fallback
         try:
             return decompress_frame_device(data)
         except DeviceLayoutUnsupported:
-            pass  # layout outside the kernels' envelope: host path below
+            # layout outside the kernels' envelope: host path below
+            note_host_fallback("frame layout outside the device envelope")
     d = FrameDecompressor()
     used, out = d.feed(data)
     if not d.finished:

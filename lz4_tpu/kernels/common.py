@@ -1,9 +1,10 @@
-"""Shared helpers for the Pallas TPU kernels.
+"""Shared helpers for the device kernels.
 
-Byte streams cross the kernel boundary as int32 *unpacked bytes* (one byte
-per 32-bit lane).  TPU vector lanes are 32-bit; int8 elementwise work is
-~30x slower than int32 on v5e (measured), so bytes are widened on-device
-with vector shifts once and kept wide throughout the compute path.
+Byte streams cross the public kernel boundary as int32 *unpacked bytes*
+(one byte per 32-bit element); the kernels themselves read and write
+uint8 and the wrappers convert at the boundary.  Kernels are Pallas
+kernels lowered through Triton; on the CPU backend (the test suite) they
+run in Pallas interpret mode.
 """
 
 from __future__ import annotations
@@ -12,19 +13,57 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 
 def on_cpu() -> bool:
-    """True when running on the CPU backend (kernels use interpret mode)."""
-    return jax.default_backend() == "cpu"
+    """True on the CPU backend, where kernels run in interpret mode.
+
+    The device path targets the GPU; any other backend is an error rather
+    than a silent fallback."""
+    platform = jax.default_backend()
+    if platform == "cpu":
+        return True
+    if platform == "gpu":
+        return False
+    raise RuntimeError(f"no kernel route for the {platform!r} backend; "
+                       "the device kernels run on an NVIDIA GPU "
+                       "(or interpreted on the CPU)")
+
+
+def triton_call(kernel, *, num_warps: int, interpret: bool, **kwargs):
+    """``pl.pallas_call`` through Triton (the route is always named: a call
+    that names none gets Mosaic GPU)."""
+    return pl.pallas_call(
+        kernel, backend="triton", interpret=interpret,
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
+        **kwargs)
+
+
+def sync(interpret: bool) -> None:
+    """Make this program's earlier stores visible to all its threads.
+
+    A Triton program spreads a vector over its threads, so bytes one
+    thread stored are read back by another only after a barrier.  The
+    interpreter runs sequentially and has no barrier to lower."""
+    if not interpret:
+        plgpu.debug_barrier()
+
+
+def bucket_pow2(x: int, lo: int, hi: int | None = None) -> int:
+    """Round x up to a power of two in [lo, hi] (clamped to hi): static
+    shapes that follow the data are bucketed, so that distinct sizes reuse
+    compiled programs instead of compiling one each."""
+    n = lo
+    while n < x and (hi is None or n < hi):
+        n *= 2
+    return n if hi is None else min(n, hi)
 
 
 @functools.partial(jax.jit, static_argnames=("row_bytes",))
 def bytes_to_i32_rows(packed: jax.Array, row_bytes: int) -> jax.Array:
-    """[B, row_bytes//4] int32 packed words -> [B, row_bytes] int32 bytes.
-
-    Unpack is pure vector work (shifts/masks + minor-dim reshape).
-    """
+    """[B, row_bytes//4] int32 packed words -> [B, row_bytes] int32 bytes."""
     w = packed.astype(jnp.int32)
     b0 = w & 0xFF
     b1 = (w >> 8) & 0xFF
@@ -48,68 +87,9 @@ def np_pack_rows(buffers, row_bytes: int):
     [B] int32 lengths).  Rows are zero padded."""
     import numpy as np
     B = len(buffers)
-    row_words = row_bytes // 4
     arr = np.zeros((B, row_bytes), dtype=np.uint8)
     lens = np.zeros((B,), dtype=np.int32)
     for i, b in enumerate(buffers):
         arr[i, :len(b)] = np.frombuffer(bytes(b), dtype=np.uint8)
         lens[i] = len(b)
-    words = arr.view(np.uint32).astype(np.int32) if False else \
-        arr.reshape(B, row_words, 4).astype(np.uint32)
-    packed = (words[..., 0] | (words[..., 1] << 8) | (words[..., 2] << 16)
-              | (words[..., 3] << 24)).astype(np.int32)
-    return packed, lens
-
-
-def np_unpack_rows(packed, lens, row_bytes: int):
-    """Host helper: inverse of np_pack_rows -> list of byte strings."""
-    import numpy as np
-    packed = np.asarray(packed).astype(np.uint32)
-    B = packed.shape[0]
-    out = []
-    b0 = (packed & 0xFF).astype(np.uint8)
-    b1 = ((packed >> 8) & 0xFF).astype(np.uint8)
-    b2 = ((packed >> 16) & 0xFF).astype(np.uint8)
-    b3 = ((packed >> 24) & 0xFF).astype(np.uint8)
-    allb = np.stack([b0, b1, b2, b3], axis=-1).reshape(B, row_bytes)
-    for i in range(B):
-        out.append(allb[i, :int(lens[i])].tobytes())
-    return out
-
-
-@jax.jit
-def words_to_val32_2d(packed_rows: jax.Array) -> jax.Array:
-    """[R, 32] int32 packed LE words (R divisible by 512) -> [R, 128] val32
-    lanes (lane p of row r = LE32 read at byte 128r+p, crossing rows).
-
-    Works in 64KB chunks with the same roll pattern the other transforms
-    use (fast on this chip), then patches the 3 chunk-boundary lanes whose
-    rolls wrapped within the chunk.
-    """
-    w = packed_rows.astype(jnp.int32)
-    R = w.shape[0]
-    NB = R // 512
-    wc = w.reshape(NB, 512 * 32)
-    b0 = wc & 0xFF
-    b1 = (wc >> 8) & 0xFF
-    b2 = (wc >> 16) & 0xFF
-    b3 = (wc >> 24) & 0xFF
-    by = jnp.stack([b0, b1, b2, b3], axis=-1).reshape(NB, 65536)
-    v = (by
-         + (jnp.roll(by, -1, axis=1) << 8)
-         + (jnp.roll(by, -2, axis=1) << 16)
-         + (jnp.roll(by, -3, axis=1) << 24))
-    # boundary patch: the last 3 lanes of each chunk read the next chunk's
-    # first 3 bytes (zeros past the final chunk)
-    head = jnp.concatenate(
-        [by[1:, :3], jnp.zeros((1, 3), jnp.int32)], axis=0)  # [NB, 3]
-    tail = by[:, -3:]                                        # [NB, 3]
-    t0 = (tail[:, 0] + (tail[:, 1] << 8) + (tail[:, 2] << 16)
-          + (head[:, 0] << 24))
-    t1 = (tail[:, 1] + (tail[:, 2] << 8) + (head[:, 0] << 16)
-          + (head[:, 1] << 24))
-    t2 = (tail[:, 2] + (head[:, 0] << 8) + (head[:, 1] << 16)
-          + (head[:, 2] << 24))
-    patch = jnp.stack([t0, t1, t2], axis=-1)                 # [NB, 3]
-    v = jax.lax.dynamic_update_slice(v, patch, (0, 65533))
-    return v.reshape(R, 128)
+    return arr.view("<i4").astype(np.int32), lens

@@ -1,946 +1,230 @@
-"""Pallas TPU block decoder — scalar parse, vector copies.
+"""LZ4 block decoder for the GPU: one Pallas kernel body through Triton.
 
-The LZ4 token stream is inherently sequential *within* a block, so token
-parsing runs on the TPU scalar core over an SMEM copy of the compressed
-stream (held as val32 lanes: lane p = LE32 word at byte p, so a token and
-its LE16 match offset parse in single loads).  The byte movement runs on
-the VPU: literal runs and match copies move in up-to-128-byte chunks
-through a 128-lane carry register that is flushed to a VMEM-resident
-output row buffer as rows fill.  Alignment between an arbitrary source
-byte offset and the current output lane is absorbed into the *address* of
-the source window load (load at ``src - cpos``), so a chunk costs one
-dynamic 2-row window load + one dynamic lane roll + selects.
+An LZ4 token stream is sequential inside a block, so a block is decoded
+by one program (one warp) running a token machine: the token, its length
+extensions and the match offset are scalar loads, and literal runs and
+match copies move as masked vector loads and stores of ``COPY`` bytes,
+straight from the compressed input to the output's final place in device
+memory.  An overlapping match (offset < length) copies in chunks of at
+most ``offset`` bytes and doubles its source distance as the copied run
+grows: any multiple of the offset is an equally valid source once that
+many bytes exist, so even offset-1 runs settle into full-width chunks.
 
-The scalar core is issue-bound at ~1 op/cycle, so the common case takes a
-branch-free fast path chosen by one ``lax.cond`` per sequence: token with
-both nibbles < 15, sequence fits inside the current output row (no carry
-flush), match offset >= match length (no overlap doubling).  Literal runs
-of <= 4 bytes (the majority) are injected by broadcasting the val32 word
-and shifting per-lane — no window load, no roll.  Everything else (length
-extensions, row crossings, overlapping matches, 128-byte-plus runs) falls
-to the general path, where overlapping matches use offset doubling: any
-multiple of the original offset is an equally valid source distance once
-that many bytes have been copied, so even offset-1 RLE runs settle into
-full-width chunks after ~7 iterations.
+The 64 KB match window is read back from the output itself, so a window
+is simply bytes in front of a block's output: a dictionary, the previous
+block of a linked chain or the preceding bytes of a scatter-gather space
+sits there, and the block's *window floor* says how far back a match may
+reach.
+
+Two launch shapes serve every decode form:
+
+* ``blocks``: one program per independent block (batch, dictionary and
+  destSize decode); programs run in any order.
+* ``chain``: one program that decodes a whole chain in order, for the
+  forms whose blocks depend on earlier output (linked frames, scatter-
+  gather chains, linked streams).  GPU programs run in no fixed order,
+  so the chain loop lives inside one program.
+
+The stream decoder (one frame's blocks of 64 KB-8 MB as one output
+stream) first walks every block's tokens in parallel without moving a
+byte, to learn its decoded size; the sizes place each block's output, so
+independent blocks then decode one program each and a linked stream as
+one chain.
 
 Semantics parity: ``LZ4_decompress_safe`` (reference lz4.c:1098-1320 via
-the 1360 wrapper) — bounds-checked literal/match copies, overlap-safe
-match copy, dictionary window support (``_usingDict``, lz4.c:1512), error
-reporting as negative lengths.
-
-Memory plan per grid step (shapes static):
-  vals row  [1, M]   HBM --DMA--> SMEM: val32 lanes for the parser
-  comp rows [MR,128] HBM --DMA--> VMEM rows 1..MR+1 (lead/pad rows zero),
-                     masked to bytes in place (vals & 0xFF)
-  dict rows [PR,128] HBM --DMA--> VMEM out rows 1..PR+1 (right-aligned)
-  out rows           VMEM scratch rows [1+PR, 1+PR+NR) --DMA--> HBM
-  olen      whole [B] vector lives in SMEM, one lane written per step
+the 1360 wrapper) -- bounds-checked literal and match copies, dictionary
+windows (``_usingDict``, lz4.c:1512), errors reported as negative lengths.
+Every sequence is validated whole before a byte moves, so a sequence that
+does not fit stops cleanly at a token boundary: the destSize rewind
+(lz4.c:1161-1163, 1316-1319).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .common import on_cpu
+from .common import bucket_pow2, on_cpu, sync, triton_call
 
 ERR_MALFORMED = -1
+COPY = 32            # bytes per masked vector copy (one per thread)
+NUM_WARPS = 1
 
-# Timing-ablation hooks (scratch/dec_ab.py): the parse trajectory reads
-# only the compressed stream, so replacing/removing the byte-movement ops
-# yields wrong OUTPUT BYTES but an identical instruction trace — a valid
-# differential timing of each component.  Never set in production: the
-# hook is refused unless LZ4TPU_DEBUG=1 also set, so a stray env var in a
-# deployment cannot silently corrupt decodes.
-_ABLATE = frozenset(
-    os.environ.get("LZ4TPU_DEC_ABLATE", "").split(",")) - {""}
-if _ABLATE and os.environ.get("LZ4TPU_DEBUG") != "1":
-    raise RuntimeError(
-        "LZ4TPU_DEC_ABLATE produces deliberately WRONG output bytes and is "
-        "a timing instrument only; refusing to honor it without "
-        "LZ4TPU_DEBUG=1 (unset LZ4TPU_DEC_ABLATE to decode normally)")
-
-# how many EXTRA sequences the fast path tries to retire per loop
-# iteration.  The loop is INSTRUCTION-ISSUE bound with zero latency
-# slack (round-5 PAD probe, docs/SOL.md), so a lane pays only when its
-# marginal ops per retired sequence undercut a solo iteration's ~125:
-# measured at mm=8, 1 extra lane = +13% (its body rides the shared
-# parse/advance work), a 2nd lane LOSES ~7% (its ops are always
-# issued but it rarely admits) — the default is 1.
-PAIR_LANES = int(os.environ.get("LZ4TPU_DEC_PAIR_LANES", "1"))
-
-# diagnostic (timing-only, output-preserving): issue N dummy independent
-# scalar ops per fast iteration to probe for issue slack — the round-5
-# measurement showed padding costs its full issue time (no slack)
-PAD_OPS = int(os.environ.get("LZ4TPU_DEC_PAD", "0"))
+# sequence outcomes
+_RUN, _DONE, _CORRUPT, _FULL = 0, 1, 2, 3
 
 
-@jax.jit
-def preparse_rows(vals: jax.Array) -> jax.Array:
-    """VPU pre-decode of every byte position: pre[p] packs the fields a
-    sequence header starting at p would parse, so the scalar loop reads
-    ONE side-table word instead of re-deriving them op by op (the scalar
-    core is issue-bound; docs/ARCHITECTURE.md).  Covers the one-inline-
-    extension-byte envelope the fast/mid paths handle; the general path
-    re-reads the stream with full extension loops as before.
+def _decode_block(src, dst, s0, n, o0, olim, floor, interpret, copy=True):
+    """Decode the block ``src[s0:s0+n]`` into ``dst[o0:olim]``; matches may
+    reach back to ``dst[floor]``.  Returns (status, ip, op) at the last
+    token boundary.  With ``copy=False`` no byte moves: the walk only
+    measures the block."""
+    iend = s0 + n
+    last = src.shape[0] - 1
+    lanes = lax.iota(jnp.int32, COPY)
 
-    Packing (26 bits of an int32):
-      bits  0..9   mdelta  = bytes from the token to the match header
-                             (1 + has_lle + ll, <= 272)
-      bits 10..18  ll      = literal length incl. one ext byte (<= 270)
-      bits 19..23  ml_base = match-nibble + 4 (4..19)
-      bit  24      is_ext  = match nibble == 15 (one ext byte follows)
-      bit  25      ok_lle  = literal run needs at most one ext byte
-    """
-    ll_nib = (vals >> 4) & 0xF
-    ml_nib = vals & 0xF
-    lle_b = (vals >> 8) & 0xFF
-    has_lle = ll_nib == 15
-    ll = ll_nib + jnp.where(has_lle, lle_b, 0)
-    mdelta = 1 + has_lle.astype(jnp.int32) + ll
-    ok_lle = jnp.logical_not(jnp.logical_and(has_lle, lle_b == 255))
-    return (mdelta
-            | (ll << 10)
-            | ((ml_nib + 4) << 19)
-            | ((ml_nib == 15).astype(jnp.int32) << 24)
-            | (ok_lle.astype(jnp.int32) << 25))
+    def byte(i):
+        return src[jnp.clip(i, 0, last)].astype(jnp.int32)
+
+    def length(nib, ip):
+        """A nibble of 15 continues in extension bytes while they are 255."""
+        def body(c):
+            total, ip, ok, _ = c
+            ok = jnp.logical_and(ok, ip < iend)
+            b = jnp.where(ok, byte(ip), 0)
+            return total + b, ip + 1, ok, b == 255
+
+        total, ip, ok, _ = lax.while_loop(
+            lambda c: jnp.logical_and(c[2], c[3]), body,
+            (nib, ip, jnp.bool_(True), nib == 15))
+        return total, ip, ok
+
+    def copy_literals(ip, op, count):
+        def body(k, carry):
+            off = k * COPY + lanes
+            m = off < count
+            v = plgpu.load(src.at[jnp.minimum(ip + off, last)], mask=m,
+                           other=0)
+            plgpu.store(dst.at[op + off], v, mask=m)
+            return carry
+
+        lax.fori_loop(0, (count + COPY - 1) // COPY, body, 0)
+
+    def copy_match(op, offset, count):
+        def body(c):
+            op, rem, dist = c
+            sync(interpret)      # the source may be bytes just stored
+            take = jnp.minimum(jnp.minimum(rem, dist), COPY)
+            m = lanes < take
+            v = plgpu.load(dst.at[op - dist + lanes], mask=m, other=0)
+            plgpu.store(dst.at[op + lanes], v, mask=m)
+            rem = rem - take
+            dist = jnp.where(2 * dist - offset <= count - rem, 2 * dist,
+                             dist)
+            return op + take, rem, dist
+
+        lax.while_loop(lambda c: c[1] > 0, body, (op, count, offset))
+
+    def step(c):
+        ip0, op, _ = c
+        tok = byte(ip0)
+        lit, ip, ok = length(tok >> 4, ip0 + 1)
+        ok_lit = jnp.logical_and(ok, lit <= iend - ip)
+        mpos = ip + lit
+        ended = jnp.logical_and(ok_lit, mpos == iend)
+        ok_off = jnp.logical_and(ok_lit, iend - mpos >= 2)
+        offset = jnp.where(ok_off, byte(mpos) | (byte(mpos + 1) << 8), 1)
+        mlen, ipm, ok_ml = length(tok & 15, mpos + 2)
+        mlen = mlen + 4
+        op1 = op + lit
+        ok_match = jnp.logical_and(
+            jnp.logical_and(ok_off, ok_ml),
+            jnp.logical_and(offset > 0, offset <= op1 - floor))
+        valid = jnp.logical_and(ok_lit, jnp.logical_or(ended, ok_match))
+        room = jnp.logical_and(
+            lit <= olim - op, jnp.logical_or(ended, mlen <= olim - op1))
+        go = jnp.logical_and(valid, room)
+        match = jnp.logical_and(go, jnp.logical_not(ended))
+        if copy:
+            copy_literals(ip, op, jnp.where(go, lit, 0))
+            copy_match(op1, offset, jnp.where(match, mlen, 0))
+        # _DONE / _RUN after a clean step, _FULL / _CORRUPT otherwise
+        status = jnp.where(go, ended.astype(jnp.int32),
+                           _CORRUPT + valid.astype(jnp.int32))
+        ip = jnp.where(match, ipm, jnp.where(go, mpos, ip0))
+        op = jnp.where(go, op1 + jnp.where(match, mlen, 0), op)
+        return ip, op, status
+
+    ip, op, status = lax.while_loop(
+        lambda c: jnp.logical_and(c[2] == _RUN, c[0] < iend), step,
+        (s0, o0, jnp.int32(_RUN)))
+    return status, ip, op
 
 
-def _make_lit12(sval, merge, lane):
-    """Shared 12-literal broadcast injection for the fast/mid sequence
-    paths of both decode kernels: up to 12 literal bytes from three
-    broadcast val32 words, shifted per lane — no window load, no roll.
+def _copy_stored(src, dst, s0, n, o0, cap):
+    """An uncompressed block (lz4frame.c:518-524) copied as one literal
+    run; it fails when it does not fit its capacity."""
+    lanes = lax.iota(jnp.int32, COPY)
+    last = src.shape[0] - 1
+    ok = n <= cap
 
-    The 12-byte literal vector is built OFF the carry chain (the selects
-    between the three broadcast words form a dependency tree the VPU can
-    overlap), then merged into the carry ONCE: the carry-dependent chain
-    is a single merge instead of three — the loop-carried vector chain,
-    not scalar op count, is this kernel's critical path (round-4
-    measurement, docs/SOL.md).
+    def body(k, carry):
+        off = k * COPY + lanes
+        m = off < n
+        v = plgpu.load(src.at[jnp.minimum(s0 + off, last)], mask=m, other=0)
+        plgpu.store(dst.at[o0 + off], v, mask=m)
+        return carry
 
-    Returns ``lit12(carry, lit_ip, cpos, ll, two_rows)`` producing the
-    (row1, row2) carries; with ``two_rows=False`` the second row's
-    merge is skipped (row-local fast path).  The call sites of both
-    decode kernels must agree on this arithmetic, which is why it lives
-    in one place.
-    """
-    ZERO = jnp.zeros((1, 128), jnp.int32)
-
-    if "nolit12" in _ABLATE:
-        return lambda carry, lit_ip, cpos, ll, two_rows: (carry, ZERO)
-
-    def lit12(carry, lit_ip, cpos, ll, two_rows):
-        w0 = sval(lit_ip)
-        wa = sval(lit_ip + 4)
-        wb = sval(lit_ip + 8)
-
-        def litvec(base):
-            d = lane - base
-            w = jnp.where(d < 4, w0, jnp.where(d < 8, wa, wb))
-            sh = (d & 3) * 8
-            return (w >> sh) & 0xFF
-
-        c1 = merge(carry, litvec(cpos), cpos, ll)
-        c2 = merge(ZERO, litvec(cpos - 128), cpos - 128, ll) \
-            if two_rows else ZERO
-        return c1, c2
-
-    return lit12
+    lax.fori_loop(0, jnp.where(ok, (n + COPY - 1) // COPY, 0), body, 0)
+    status = _CORRUPT - ok.astype(jnp.int32)          # _DONE or _CORRUPT
+    return status, s0 + n, o0 + jnp.where(ok, n, 0)
 
 
-def _make_decode_kernel(M: int, N: int, P: int, mode: str = "batch",
-                        resumable: bool = False):
-    """mode: 'batch' (independent blocks, optional per-block dicts),
-    'linked' (full-block chains, window = previous block's output), or
-    'sg' (scatter-gather chains: outputs land at arbitrary byte offsets
-    of ONE continuous HBM space; the window is the preceding 64 KB of
-    that space, realigned on entry, and the block's output is written
-    back byte-shifted to its global offset — lz4sg.c:536-695 semantics
-    with the iovec walking on the host).
+# ---------------------------------------------------------------------------
+# blocks: one program per independent block
+# ---------------------------------------------------------------------------
 
-    ``resumable``: destSize-decode variant (the fork's token-boundary
-    rewind, lz4.c:1161-1163, 1316-1319): a row that runs out of output
-    room stops cleanly at the last token boundary — olen reports the
-    bytes produced and cons the source bytes consumed up to it, so a
-    caller can resume with more output (feeding comp[cons:] with the
-    produced bytes as the dictionary window).  Corruption still reports
-    olen = cons = -1.  The plain variant keeps its straight-line
-    failure wheres (the rewind selects cost a few ops per sequence)."""
-    MR = M // 128
-    PR = P // 128
-    NR = N // 128
-    OUT0 = 1 + PR          # first output row in the out scratch
-    OBASE = 128 * PR       # address offset of output byte 0 in out space
-    linked = mode == "linked"
-    sg = mode == "sg"
-
-    def kernel(clen_ref, plen_ref, ocap_ref, vals2d_hbm, pre2d_hbm,
-               vals3d_hbm, dict_hbm, out_hbm, olen_ref, *rest):
-        if resumable:
-            cons_ref, vsmem, psmem, cvmem, ovmem = rest[:5]
-        else:
-            cons_ref = None
-            vsmem, psmem, cvmem, ovmem = rest[:4]
-        rest = rest[5 if resumable else 4:]
-        if sg:
-            stage, sem_s, sem_p, sem_v, sem_d, sem_o = rest
-        else:
-            sem_s, sem_p, sem_v, sem_d, sem_o = rest
+def _blocks_kernel(P: int, resumable: bool, interpret: bool):
+    """Row b: compressed row -> [window P | output] row.  meta[b] = (clen,
+    capacity, window length)."""
+    def kernel(meta, src, dst_in, dst, olen, *cons):
+        del dst_in                      # aliased to dst
         b = pl.program_id(0)
-        n = clen_ref[b]
-        lane = lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-        ZERO = jnp.zeros((1, 128), jnp.int32)
-        if linked:
-            # chain mode: the window is the previous block's full output
-            # (LZ4F linked frames emit full blocks except the last, so a
-            # partial predecessor simply yields an empty window and the
-            # block fails cleanly if it references it).  Block 0 may seed
-            # an INITIAL window (plen_ref[0] bytes, right-aligned in
-            # dict_hbm[0]) so a long chain can be decoded in pipelined
-            # groups with the window handed from group to group.
-            prev_full = jnp.logical_and(
-                b > 0, olen_ref[jnp.maximum(b - 1, 0)] == N)
-            plen = jnp.where(b == 0, plen_ref[0],
-                             jnp.where(prev_full, P, 0))
-        elif sg:
-            # plen_ref carries the cumulative output offset per block;
-            # the continuous HBM space has a 512-row (64 KB) zero lead
-            cum = plen_ref[b]
-            plen = jnp.minimum(cum, P)
-        else:
-            plen = plen_ref[b]
-        olim = jnp.minimum(ocap_ref[b], N)
-
-        cp_s = pltpu.make_async_copy(vals2d_hbm.at[b], vsmem, sem_s)
-        cp_s.start()
-        cp_p = pltpu.make_async_copy(pre2d_hbm.at[b], psmem, sem_p)
-        cp_p.start()
-        cp_v = pltpu.make_async_copy(vals3d_hbm.at[b],
-                                     cvmem.at[pl.ds(1, MR), :], sem_v)
-        cp_v.start()
-        cvmem[0:1, :] = ZERO
-        # three zero tail rows: the mid path's 3-row literal window read
-        # may start in the last input row
-        cvmem[MR + 1:MR + 4, :] = jnp.zeros((3, 128), jnp.int32)
-        if linked:
-            @pl.when(b > 0)
-            def _():
-                cp_d = pltpu.make_async_copy(out_hbm.at[b - 1],
-                                             ovmem.at[pl.ds(1, PR), :],
-                                             sem_d)
-                cp_d.start()
-                cp_d.wait()
-
-            @pl.when(jnp.logical_and(b == 0, plen_ref[0] > 0))
-            def _():
-                cp_d = pltpu.make_async_copy(dict_hbm.at[0],
-                                             ovmem.at[pl.ds(1, PR), :],
-                                             sem_d)
-                cp_d.start()
-                cp_d.wait()
-        elif sg:
-            # window bytes live at HBM bytes [cum, cum + 64K) (the lead
-            # pad absorbs cum < 64K); realign so the window ENDS at the
-            # local dict/out boundary: two whole-array vector ops
-            f = cum >> 7
-            s_ = cum & 127
-            cp_d = pltpu.make_async_copy(out_hbm.at[pl.ds(f, PR + 1), :],
-                                         stage.at[pl.ds(0, PR + 1), :],
-                                         sem_d)
-            cp_d.start()
-            cp_d.wait()
-            rot = pltpu.roll(stage[0:PR + 1, :], -s_, axis=1)
-            ovmem[pl.ds(1, PR), :] = jnp.where(lane < 128 - s_,
-                                               rot[0:PR], rot[1:PR + 1])
-        elif P:
-            cp_d = pltpu.make_async_copy(dict_hbm.at[b],
-                                         ovmem.at[pl.ds(1, PR), :], sem_d)
-            cp_d.start()
-            cp_d.wait()
-        cp_v.wait()
-        cvmem[pl.ds(1, MR), :] = cvmem[pl.ds(1, MR), :] & 0xFF
-        cp_s.wait()
-        cp_p.wait()
-
-        def sval(ip):
-            return vsmem[0, jnp.minimum(ip, M - 1)]
-
-        def pval(ip):
-            return psmem[0, jnp.minimum(ip, M - 1)]
-
-        def sbyte(ip):
-            return sval(ip) & 0xFF
-
-        def read_ext(nibble, ip):
-            """Length-extension bytes; zero iterations when nibble < 15."""
-            def cond(c):
-                _, _, ok, stop = c
-                return jnp.logical_and(ok, jnp.logical_not(stop))
-
-            def body(c):
-                extra, ip2, ok, _ = c
-                ok2 = ip2 < n
-                bb = jnp.where(ok2, sbyte(ip2), 0)
-                return (extra + bb, ip2 + jnp.int32(1),
-                        jnp.logical_and(ok, ok2), bb != 255)
-
-            extra, ip2, ok, _ = lax.while_loop(
-                cond, body, (jnp.int32(0), ip, jnp.bool_(True),
-                             nibble != 15))
-            return extra, ip2, ok
-
-        def window(ref, a):
-            """[1,128] vector v with v[lane] = ref byte at address a + lane
-            (address -128 maps to the zero/lead row)."""
-            f = a >> 7
-            sl = a & 127
-            w = ref[pl.ds(f + 1, 2), :]
-            if "noroll" in _ABLATE:
-                return w[0:1]
-            if "staticroll" in _ABLATE:
-                rot = pltpu.roll(w, 37, axis=1)
-                return jnp.where(lane < 128 - 37, rot[0:1], rot[1:2])
-            rot = pltpu.roll(w, -sl, axis=1)
-            return jnp.where(lane < 128 - sl, rot[0:1], rot[1:2])
-
-        def merge(carry, v, cpos, take):
-            m = jnp.logical_and(lane >= cpos, lane < cpos + take)
-            return jnp.where(m, v, carry)
-
-        lit12 = _make_lit12(sval, merge, lane)
-
-        # ------------------------------------------------------------------
-        # general path: length extensions, row crossings, overlap doubling
-        # ------------------------------------------------------------------
-
-        def copy_literals(carry, opos, src, litlen):
-            def body(st):
-                carry, opos, src, rem = st
-                cpos = opos & 127
-                take = jnp.minimum(128 - cpos, rem)
-                v = window(cvmem, src - cpos)
-                carry = merge(carry, v, cpos, take)
-                opos2 = opos + take
-
-                @pl.when((opos2 & 127) == 0)
-                def _():
-                    ovmem[pl.ds((opos2 >> 7) - 1 + OUT0, 1), :] = carry
-                return carry, opos2, src + take, rem - take
-
-            carry, opos, _, _ = lax.while_loop(
-                lambda st: st[3] > 0, body, (carry, opos, src, litlen))
-            return carry, opos
-
-        def copy_match(carry, opos, offset, mlen):
-            def body(st):
-                carry, opos, rem, o_eff = st
-                cpos = opos & 127
-                # flush the partial row so window reads see bytes < opos
-                ovmem[pl.ds((opos >> 7) + OUT0, 1), :] = carry
-                take = jnp.minimum(jnp.minimum(128 - cpos, rem), o_eff)
-                v = window(ovmem, opos - o_eff + OBASE - cpos)
-                carry = merge(carry, v, cpos, take)
-                opos2 = opos + take
-
-                @pl.when((opos2 & 127) == 0)
-                def _():
-                    ovmem[pl.ds((opos2 >> 7) - 1 + OUT0, 1), :] = carry
-                rem2 = rem - take
-                copied2 = mlen - rem2
-                o_eff = jnp.where(2 * o_eff - offset <= copied2,
-                                  2 * o_eff, o_eff)
-                return carry, opos2, rem2, o_eff
-
-            carry, opos, _, _ = lax.while_loop(
-                lambda st: st[2] > 0, body, (carry, opos, mlen, offset))
-            return carry, opos
-
-        def slow_seq(ip0, opos0, carry, fl, ll_f, litip_f, mlb, cpos,
-                     mlen_f, offset_f, ipadv_f):
-            # (the _f args are the fast path's precomputed values; the
-            # general path re-derives them with full extension loops.
-            # nibble reconstruction: ll < 15 <=> no literal extension, so
-            # min(ll, 15) is exactly the token's literal nibble; mlb is
-            # the match nibble + 4.)
-            # The WHOLE sequence is parsed and validated BEFORE any byte
-            # moves: a failing sequence leaves the carry and rows
-            # untouched, so (ip0, opos0) is a clean token-boundary
-            # rewind (lz4.c:1161-1163, 1316-1319 destSize contract) —
-            # and status 3 (out of room) is distinguishable from
-            # status 2 (corrupt).
-            ll_nib = jnp.minimum(ll_f, 15)
-            ml_nib = mlb - 4
-            ip = ip0 + 1
-            ext, ip, ok1 = read_ext(ll_nib, ip)
-            litlen = ll_nib + ext
-            lit_start = ip
-            v_lit = jnp.logical_and(ok1, ip + litlen <= n)
-            ip_after = ip + litlen
-            ended = jnp.logical_and(v_lit, ip_after == n)
-            r_lit = opos0 + litlen <= olim
-
-            ok_m0 = jnp.logical_and(v_lit, ip_after + 2 <= n)
-            offset = jnp.where(ok_m0, sval(ip_after) & 0xFFFF, 1)
-            ip_m = ip_after + 2
-            ext2, ip_m, ok_e2 = read_ext(ml_nib, ip_m)
-            mlen = ml_nib + ext2 + 4
-            opos1 = opos0 + litlen
-            v_m = jnp.logical_and(ok_m0, ok_e2)
-            v_m = jnp.logical_and(v_m, jnp.logical_and(
-                offset > 0, offset <= opos1 + plen))
-            r_m = opos1 + mlen <= olim
-
-            valid = jnp.logical_and(v_lit, jnp.logical_or(ended, v_m))
-            room = jnp.logical_and(r_lit, jnp.logical_or(ended, r_m))
-            go = jnp.logical_and(valid, room)
-
-            carry, opos = lax.cond(
-                jnp.logical_and(go, litlen > 0),
-                lambda c, o: copy_literals(c, o, lit_start, litlen),
-                lambda c, o: (c, o), carry, opos0)
-            do_match = jnp.logical_and(go, jnp.logical_not(ended))
-            carry, opos = lax.cond(
-                do_match,
-                lambda c, o: copy_match(c, o, offset, mlen),
-                lambda c, o: (c, o), carry, opos)
-
-            ip = jnp.where(do_match, ip_m,
-                           jnp.where(go, ip_after, ip0))
-            opos = jnp.where(go, opos, opos0)
-            status = jnp.where(jnp.logical_and(go, ended), 1,
-                               jnp.where(do_match, 0,
-                                         jnp.where(valid, 3, 2)))
-            # flushed watermark: copy loops store completed rows; the
-            # partial row [opos & ~127, opos) lives only in the carry
-            fl = jnp.maximum(fl, opos & ~127)
-            return (ip.astype(jnp.int32), opos.astype(jnp.int32),
-                    status.astype(jnp.int32), carry, fl)
-
-        # ------------------------------------------------------------------
-        # fast path: no extensions, fits in the current output row, match
-        # offset >= match length.  Straight-line; merges run before the
-        # validity checks (all addresses clamped, results discarded on -1).
-        #
-        # PAIRED (round 4): the loop body has an ~80ns/iteration floor on
-        # this core, and a SECOND independent window roll in the same
-        # iteration is essentially free (rolls pipeline; measured,
-        # scratch/probe_roll2.py / docs/SOL.md) — so the fast path also
-        # parses the NEXT sequence and, when it also qualifies (fast
-        # class, same output row, and its match source stays below this
-        # sequence's match output), retires BOTH in one iteration.  The
-        # second sequence's effects are branchless: its merges run with
-        # take=0 when the pair is disarmed.
-        # ------------------------------------------------------------------
-
-        def fast_seq(ip, opos, carry, fl, ll, lit_ip, mlb, cpos,
-                     mlen, offset, ip_adv):
-            # mlen/offset/ip_adv precomputed by seq_body; ll <= 12 here
-            # implies no literal extension, so lit_ip = ip + 1
-            ip1 = lit_ip
-            ipm = ip1 + ll          # match header position (== mpos)
-            opos1 = opos + ll
-            cpos1 = cpos + ll
-            opos2 = opos1 + mlen
-
-            if PAD_OPS:
-                # issue-slack probe: 4 independent dummy chains, folded
-                # in through a branch no compiler can resolve
-                pads = [ip + 1, opos + 3, ll + 7, mlen + 11]
-                for _i in range(PAD_OPS // 4):
-                    pads = [(d * 5 + _i) & 0xFFFF for d in pads]
-                _pad = pads[0] ^ pads[1] ^ pads[2] ^ pads[3]
-                fl = jnp.where(_pad == -123457, fl + 1, fl)
-
-            ended = ipm == n
-            ok_l = jnp.logical_and(ipm <= n, opos1 <= olim)
-            ok_m = jnp.logical_and(
-                jnp.logical_and(ok_l, ip_adv <= n),
-                jnp.logical_and(offset > 0, offset <= opos1 + plen))
-            ok_m = jnp.logical_and(ok_m, opos2 <= olim)
-            do_match = jnp.logical_and(jnp.logical_not(ended), ok_m)
-
-            # ---- extra lanes: parse the next K sequences, chained ----
-            # Lane x joins the iteration iff every earlier lane joined,
-            # it is fast-class, its whole output stays in this row, and
-            # its match source stays below lane A's match output (it may
-            # read A's literals — the single flush below includes them).
-            lanes = []
-            prev_ok = do_match
-            ip_cur, opos_cur, cpos_cur = ip_adv, opos2, cpos1 + mlen
-            for _ in range(PAIR_LANES):
-                p1x = pval(ip_cur)
-                mposx = ip_cur + (p1x & 1023)
-                v2x = sval(mposx)
-                offx = v2x & 0xFFFF
-                extbx = (v2x >> 16) & 0xFF
-                llx = (p1x >> 10) & 0x1FF
-                is_extx = (p1x >> 24) & 1
-                mlenx = ((p1x >> 19) & 31) + is_extx * extbx
-                ip_advx = mposx + 2 + is_extx
-                lit_ipx = jnp.maximum(mposx - llx, 0)
-                oposx1 = opos_cur + llx
-                cposx = cpos_cur
-                cposx1 = cposx + llx
-                oposx2 = oposx1 + mlenx
-                ok_ex = jnp.logical_and(
-                    (p1x >> 25) != 0,
-                    jnp.logical_or(is_extx == 0, extbx != 255))
-                px = jnp.logical_and(
-                    jnp.logical_and(prev_ok,
-                                    jnp.logical_and(ok_ex, offx >= mlenx)),
-                    jnp.logical_and(llx <= 12, cposx1 + mlenx <= 123))
-                px = jnp.logical_and(px, mposx != n)
-                px = jnp.logical_and(px, ip_advx <= n)
-                px = jnp.logical_and(px, oposx2 <= olim)
-                px = jnp.logical_and(
-                    px, jnp.logical_and(offx > 0, offx <= oposx1 + plen))
-                px = jnp.logical_and(px, oposx1 - offx + mlenx <= opos1)
-                lanes.append((px, lit_ipx, llx, cposx, oposx1, offx,
-                              mlenx, cposx1, ip_advx, oposx2))
-                prev_ok = px
-                ip_cur, opos_cur, cpos_cur = ip_advx, oposx2, cposx1 + mlenx
-
-            # literal injection, branchless (shared arithmetic: _make_lit12)
-            carry, _ = lit12(carry, ip1, cpos, ll, two_rows=False)
-
-            # watermark-gated flush: ovmem's current row is stale only in
-            # [fl, opos1) (fast sequences are row-local and every other
-            # path flushes its rows), so the store — and the store->load
-            # serialization it forces on the window reads — is needed
-            # only when a match source reaches past fl (docs/SOL.md)
-            need = opos1 - offset + mlen > fl
-            for (px, _, _, _, oposx1, offx, mlenx, _, _, _) in lanes:
-                need = jnp.logical_or(need, jnp.logical_and(
-                    px, oposx1 - offx + mlenx > fl))
-            if "noflush" not in _ABLATE:
-                @pl.when(need)
-                def _():
-                    ovmem[pl.ds((opos >> 7) + OUT0, 1), :] = carry
-            fl = jnp.where(need, opos1, fl)
-
-            a = jnp.clip(opos1 - offset + OBASE - cpos1,
-                         -128, 128 * (PR + NR - 1))
-            v = window(ovmem, a)
-            carry = merge(carry, v, cpos1, jnp.where(do_match, mlen, 0))
-            for (px, lit_ipx, llx, cposx, oposx1, offx, mlenx, cposx1,
-                 _, _) in lanes:
-                ax = jnp.clip(oposx1 - offx + OBASE - cposx1,
-                              -128, 128 * (PR + NR - 1))
-                vx = window(ovmem, ax)
-                carry, _ = lit12(carry, lit_ipx, cposx,
-                                 jnp.where(px, llx, 0), two_rows=False)
-                carry = merge(carry, vx, cposx1, jnp.where(px, mlenx, 0))
-
-            ok_end = jnp.logical_and(ended, ok_l)
-            if resumable:
-                # token-boundary rewind on ANY failure; status 3 = only
-                # the output room was missing (resumable), 2 = corrupt
-                v_m = jnp.logical_and(
-                    ip_adv <= n,
-                    jnp.logical_and(offset > 0, offset <= opos1 + plen))
-                hard = jnp.logical_or(
-                    ipm > n,
-                    jnp.logical_and(jnp.logical_not(ended),
-                                    jnp.logical_not(v_m)))
-                ip = jnp.where(do_match, ip_adv,
-                               jnp.where(ok_end, ipm, ip))
-                opos = jnp.where(do_match, opos2,
-                                 jnp.where(ok_end, opos1, opos))
-                status = jnp.where(ok_end, 1,
-                                   jnp.where(do_match, 0,
-                                             jnp.where(hard, 2, 3)))
-            else:
-                ip = jnp.where(do_match, ip_adv, ipm)
-                opos = jnp.where(do_match, opos2,
-                                 jnp.where(ok_l, opos1, opos))
-                status = jnp.where(ok_end, 1, jnp.where(do_match, 0, 2))
-            for (px, _, _, _, _, _, _, _, ip_advx, oposx2) in lanes:
-                ip = jnp.where(px, ip_advx, ip)
-                opos = jnp.where(px, oposx2, opos)
-            return (ip.astype(jnp.int32), opos.astype(jnp.int32),
-                    status.astype(jnp.int32), carry, fl)
-
-        # --------------------------------------------------------------
-        # mid path: like fast_seq but the sequence's output may cross ONE
-        # 128-byte row boundary (total <= 251 bytes) and the literal run
-        # may be LONG (up to 247 bytes, one extension byte).  Corpus
-        # measurement (scratch/mmstudy.py): at min_match >= 12 the
-        # dominant general-path class is ordinary sequences with 13-63
-        # literals — rejected-match regions — which cost ~3x here via the
-        # per-chunk loops.  One [3,128] roll of the INPUT window covers
-        # the whole literal run across both destination rows, and one
-        # [3,128] roll of the output window covers the match (rolls cost
-        # flat at any shape, cost model in docs/ARCHITECTURE.md).
-        # --------------------------------------------------------------
-
-        def mid_seq(ip, opos, carry, fl, ll, lit_ip, mlb, cpos,
-                    mlen, offset, ip_adv):
-            ipm = lit_ip + ll
-            opos1 = opos + ll
-            cpos1 = cpos + ll        # <= 247 (tot <= 251, mlen >= 4)
-            opos2 = opos1 + mlen
-
-            def lit_broadcast(carry):
-                # ll <= 12: broadcast injection — no roll (rolls don't
-                # hide under scalar, cost model); shared _make_lit12
-                return lit12(carry, lit_ip, cpos, ll, two_rows=True)
-
-            def lit_roll(carry):
-                # long run (13..247 bytes): one 3-row input-window roll
-                # covers both destination rows
-                a_l = jnp.clip(lit_ip - cpos, -128, 128 * MR)
-                f_l = a_l >> 7
-                sl_l = a_l & 127
-                w_l = cvmem[pl.ds(f_l + 1, 3), :]
-                rot_l = w_l if "noroll" in _ABLATE else \
-                    pltpu.roll(w_l, -sl_l, axis=1)
-                lv1 = jnp.where(lane < 128 - sl_l, rot_l[0:1], rot_l[1:2])
-                lv2 = jnp.where(lane < 128 - sl_l, rot_l[1:2], rot_l[2:3])
-                return (merge(carry, lv1, cpos, ll),
-                        merge(ZERO, lv2, cpos - 128, ll))
-
-            carry, carry2 = lax.cond(ll <= 12, lit_broadcast, lit_roll,
-                                     carry)
-            carry_tok = carry   # == the value stored at r_a (rewinds)
-
-            ended = ipm == n
-            ok_l = jnp.logical_and(ipm <= n, opos1 <= olim)
-
-            # flush both possibly-written rows so the match window sees
-            # every byte < opos1, then rebase so the match's first
-            # destination lane is < 128.  (Gating these stores on the
-            # watermark to overlap the two rolls was measured SLOWER —
-            # the conditional regions still order the load and their
-            # branch cost exceeds the overlap win; docs/SOL.md.)
-            r_a = (opos >> 7) + OUT0
-            cross_l = cpos1 >= 128
-            ovmem[pl.ds(r_a, 1), :] = carry
-
-            @pl.when(cross_l)
-            def _():
-                ovmem[pl.ds(r_a + 1, 1), :] = carry2
-
-            c = cpos1 - jnp.where(cross_l, 128, 0)
-            r1 = r_a + jnp.where(cross_l, 1, 0)
-            carry = jnp.where(cross_l, carry2, carry)
-            carry2 = jnp.where(cross_l, ZERO, carry2)
-
-            a = jnp.clip(opos1 - offset + OBASE - c,
-                         -128, 128 * (PR + NR - 1))
-            f = a >> 7
-            sl = a & 127
-            w = ovmem[pl.ds(f + 1, 3), :]
-            rot = w if "noroll" in _ABLATE else \
-                pltpu.roll(w, -sl, axis=1)
-            v1 = jnp.where(lane < 128 - sl, rot[0:1], rot[1:2])
-            v2 = jnp.where(lane < 128 - sl, rot[1:2], rot[2:3])
-            mcarry = merge(carry, v1, c, mlen)
-            mcarry2 = merge(carry2, v2, c - 128, mlen)
-
-            ok_m = jnp.logical_and(
-                jnp.logical_and(ok_l, ip_adv <= n),
-                jnp.logical_and(offset > 0, offset <= opos1 + plen))
-            ok_m = jnp.logical_and(ok_m, opos2 <= olim)
-
-            do_match = jnp.logical_and(jnp.logical_not(ended), ok_m)
-            cross_m = jnp.logical_and(do_match, c + mlen >= 128)
-
-            @pl.when(cross_m)
-            def _():
-                ovmem[pl.ds(r1, 1), :] = mcarry
-
-            ok_end = jnp.logical_and(ended, ok_l)
-            if resumable:
-                # token-boundary rewind: restore the carry that matches
-                # the already-stored token row (carry_tok went to r_a)
-                v_m = jnp.logical_and(
-                    ip_adv <= n,
-                    jnp.logical_and(offset > 0, offset <= opos1 + plen))
-                hard = jnp.logical_or(
-                    ipm > n,
-                    jnp.logical_and(jnp.logical_not(ended),
-                                    jnp.logical_not(v_m)))
-                carry = jnp.where(
-                    cross_m, mcarry2,
-                    jnp.where(do_match, mcarry,
-                              jnp.where(ok_end, carry, carry_tok)))
-                ip = jnp.where(do_match, ip_adv,
-                               jnp.where(ok_end, ipm, ip))
-                opos = jnp.where(do_match, opos2,
-                                 jnp.where(ok_end, opos1, opos))
-                status = jnp.where(ok_end, 1,
-                                   jnp.where(do_match, 0,
-                                             jnp.where(hard, 2, 3)))
-            else:
-                carry = jnp.where(cross_m, mcarry2,
-                                  jnp.where(do_match, mcarry, carry))
-                ip = jnp.where(do_match, ip_adv, ipm)
-                opos = jnp.where(do_match, opos2,
-                                 jnp.where(ok_l, opos1, opos))
-                status = jnp.where(ok_end, 1, jnp.where(do_match, 0, 2))
-            # r_a/r_b stores put the literal content through opos1 in
-            # ovmem unconditionally on this path
-            fl = jnp.maximum(fl, opos1)
-            return (ip.astype(jnp.int32), opos.astype(jnp.int32),
-                    status.astype(jnp.int32), carry, fl)
-
-        def seq_body(state):
-            ip, opos, status, carry, fl = state
-            # preparse side table (preparse_rows): one load hands the
-            # scalar core the token fields it used to re-derive op by op;
-            # a second load at mpos yields offset AND the match-extension
-            # byte from the same val32 word
-            p1 = pval(ip)
-            mpos = ip + (p1 & 1023)
-            v2 = sval(mpos)
-            offset = v2 & 0xFFFF
-            extb = (v2 >> 16) & 0xFF
-            ll = (p1 >> 10) & 0x1FF
-            is_ext = (p1 >> 24) & 1
-            mlb = (p1 >> 19) & 31
-            mlen = mlb + is_ext * extb
-            ip_adv = mpos + 2 + is_ext
-            lit_ip = mpos - ll
-            cpos = opos & 127
-            # fast/mid iff: at most ONE literal- and ONE match-extension
-            # byte, and match offset >= mlen (no overlap doubling); fast
-            # additionally requires literals <= 12 (broadcast-injectable)
-            # and no row crossing (strict, so the carry never flushes on
-            # fill); mid allows one crossing (total <= 251 bytes) and any
-            # literal run that fits it (the dominant rejected-match class
-            # at min_match >= 12, scratch/mmstudy.py)
-            ok_ext = jnp.logical_and(
-                (p1 >> 25) != 0,
-                jnp.logical_or(is_ext == 0, extb != 255))
-            base_ok = jnp.logical_and(ok_ext, offset >= mlen)
-            tot = cpos + ll + mlen
-            fast = jnp.logical_and(jnp.logical_and(base_ok, ll <= 12),
-                                   tot <= 123)
-            midc = jnp.logical_and(base_ok, tot <= 251)
-
-            def not_fast(ip, opos, carry, fl, ll, lit_ip, mlb,
-                         cpos, mlen, offset, ip_adv):
-                return lax.cond(midc, mid_seq, slow_seq,
-                                ip, opos, carry, fl, ll, lit_ip,
-                                mlb, cpos, mlen, offset, ip_adv)
-
-            return lax.cond(fast, fast_seq, not_fast,
-                            ip, opos, carry, fl, ll, lit_ip, mlb,
-                            cpos, mlen, offset, ip_adv)
-
-        def seq_cond(state):
-            return jnp.logical_and(state[2] == 0, state[0] < n)
-
-        ip, opos, status, carry, _fl = lax.while_loop(
-            seq_cond, seq_body,
-            (jnp.int32(0), jnp.int32(0), jnp.int32(0),
-             jnp.zeros((1, 128), jnp.int32), jnp.int32(0)))
-        # final flush of the partial row (pad row absorbs opos == N)
-        ovmem[pl.ds((opos >> 7) + OUT0, 1), :] = carry
+        n = meta[b, 0]
+        status, ip, op = _decode_block(src, dst, 0, n, P, P + meta[b, 1],
+                                       P - meta[b, 2], interpret)
         if resumable:
-            # destSize contract: any clean stop (done / out of room /
-            # source exhausted at a token boundary) reports produced and
-            # consumed byte counts; only corruption reports -1
-            ok_row = status != 2
-            olen_ref[b] = jnp.where(ok_row, opos, ERR_MALFORMED)
-            cons_ref[b] = jnp.where(
-                ok_row, jnp.where(status == 1, n, ip), ERR_MALFORMED)
+            # destSize contract: any clean stop reports produced and
+            # consumed counts; only corruption reports -1
+            ok = status != _CORRUPT
+            olen[b] = jnp.where(ok, op - P, ERR_MALFORMED)
+            cons[0][b] = jnp.where(
+                ok, jnp.where(status == _DONE, n, ip), ERR_MALFORMED)
         else:
-            olen_ref[b] = jnp.where(status == 1, opos, ERR_MALFORMED)
-
-        if sg:
-            # write the block's bytes to HBM shifted to its global byte
-            # offset; the first row merges with the predecessor's tail
-            g0 = (cum >> 7) + PR
-            s_ = cum & 127
-            cp_b = pltpu.make_async_copy(out_hbm.at[pl.ds(g0, 1), :],
-                                         stage.at[NR + 1:NR + 2, :], sem_d)
-            cp_b.start()
-            cp_b.wait()
-            R = pltpu.roll(ovmem[pl.ds(OUT0, NR), :], s_, axis=1)
-            stage[0:1, :] = jnp.where(lane >= s_, R[0:1],
-                                      stage[NR + 1:NR + 2, :])
-            if NR > 1:
-                stage[pl.ds(1, NR - 1), :] = jnp.where(
-                    lane >= s_, R[1:NR], R[0:NR - 1])
-            stage[NR:NR + 1, :] = R[NR - 1:NR]
-            cp_out = pltpu.make_async_copy(
-                stage.at[pl.ds(0, NR + 1), :],
-                out_hbm.at[pl.ds(g0, NR + 1), :], sem_o)
-            cp_out.start()
-            cp_out.wait()
-        else:
-            cp_out = pltpu.make_async_copy(ovmem.at[pl.ds(OUT0, NR), :],
-                                           out_hbm.at[b], sem_o)
-            cp_out.start()
-            cp_out.wait()
-
+            olen[b] = jnp.where(status == _DONE, op - P, ERR_MALFORMED)
     return kernel
 
 
-@functools.partial(jax.jit, static_argnames=("M", "N", "P", "interpret",
-                                              "linked", "resumable"))
-def _decode_blocks(comp, clen, dict_rows, plen, ocap, *, M, N, P, interpret,
-                   linked=False, resumable=False):
-    B = comp.shape[0]
-    MR, PR, NR = M // 128, P // 128, N // 128
-    # val32 lanes: lane p = LE32 word at byte p (vector shifts of rolls)
-    c = comp.astype(jnp.int32)
-    vals = (c
-            | (jnp.roll(c, -1, axis=1) << 8)
-            | (jnp.roll(c, -2, axis=1) << 16)
-            | (jnp.roll(c, -3, axis=1) << 24))
-    pre = preparse_rows(vals)
-    out_specs = [
-        pl.BlockSpec(memory_space=pl.ANY),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((B, NR, 128), jnp.int32),
-        jax.ShapeDtypeStruct((B,), jnp.int32),
-    ]
+@functools.partial(jax.jit, static_argnames=("N", "resumable", "interpret"))
+def _decode_blocks(comp, clen, dict_rows, plen, ocap, *, N, resumable,
+                   interpret):
+    B, M = comp.shape
+    P = dict_rows.shape[1]
+    dst0 = jnp.concatenate(
+        [dict_rows.astype(jnp.uint8), jnp.zeros((B, N), jnp.uint8)], axis=1)
+    meta = jnp.stack([clen, jnp.minimum(ocap, N), plen], axis=1)
+    out_shape = [jax.ShapeDtypeStruct((B, P + N), jnp.uint8),
+                 jax.ShapeDtypeStruct((B,), jnp.int32)]
+    out_specs = [pl.BlockSpec((None, P + N), lambda b: (b, 0)),
+                 pl.BlockSpec((B,), lambda b: (0,))]
     if resumable:
-        out_specs.append(pl.BlockSpec(memory_space=pltpu.SMEM))
         out_shape.append(jax.ShapeDtypeStruct((B,), jnp.int32))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
+        out_specs.append(pl.BlockSpec((B,), lambda b: (0,)))
+    res = triton_call(
+        _blocks_kernel(P, resumable, interpret),
+        num_warps=NUM_WARPS, interpret=interpret,
         grid=(B,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
+        in_specs=[pl.BlockSpec((B, 3), lambda b: (0, 0)),
+                  pl.BlockSpec((None, M), lambda b: (b, 0)),
+                  pl.BlockSpec((None, P + N), lambda b: (b, 0))],
         out_specs=tuple(out_specs),
-        scratch_shapes=[
-            pltpu.SMEM((1, M), jnp.int32),
-            pltpu.SMEM((1, M), jnp.int32),
-            pltpu.VMEM((MR + 4, 128), jnp.int32),
-            pltpu.VMEM((3 + PR + NR, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    res = pl.pallas_call(
-        _make_decode_kernel(M, N, P, "linked" if linked else "batch",
-                            resumable),
-        grid_spec=grid_spec,
         out_shape=tuple(out_shape),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(clen, plen, ocap, vals.reshape(B, 1, M), pre.reshape(B, 1, M),
-      vals.reshape(B, MR, 128), dict_rows)
-    if resumable:
-        out, olen, cons = res
-        return out.reshape(B, N), olen, cons
-    out, olen = res
-    return out.reshape(B, N), olen
+        input_output_aliases={2: 0},
+    )(meta, comp.astype(jnp.uint8), dst0)
+    out = res[0][:, P:].astype(jnp.int32)
+    return (out,) + tuple(res[1:])
 
 
-@functools.partial(jax.jit, static_argnames=("M", "N", "TOTR", "interpret"))
-def _decode_blocks_sg(comp, clen, cum, ocap, *, M, N, TOTR, interpret):
-    B = comp.shape[0]
-    MR, NR = M // 128, N // 128
-    P = 65536
-    PR = P // 128
-    c = comp.astype(jnp.int32)
-    vals = (c
-            | (jnp.roll(c, -1, axis=1) << 8)
-            | (jnp.roll(c, -2, axis=1) << 16)
-            | (jnp.roll(c, -3, axis=1) << 24))
-    pre = preparse_rows(vals)
-    dict_rows = jnp.zeros((B, 1, 128), jnp.int32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((1, M), jnp.int32),
-            pltpu.SMEM((1, M), jnp.int32),
-            pltpu.VMEM((MR + 4, 128), jnp.int32),
-            pltpu.VMEM((3 + PR + NR, 128), jnp.int32),
-            pltpu.VMEM((PR + NR + 2, 128), jnp.int32),   # stage
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    out, olen = pl.pallas_call(
-        _make_decode_kernel(M, N, P, "sg"),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((TOTR, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B,), jnp.int32),
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(clen, cum, ocap, vals.reshape(B, 1, M), pre.reshape(B, 1, M),
-      vals.reshape(B, MR, 128), dict_rows)
-    return out, olen
-
-
-def decode_blocks_sg(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
-                     out_sizes):
-    """Decode a scatter-gather chain: block k's output lands at byte
-    offset sum(out_sizes[:k]) of ONE continuous space, and its window is
-    the preceding 64 KB of that space regardless of block boundaries
-    (LZ4_decompress_fast_sg_extState semantics, lz4sg.c:536-695; the
-    host walks the iovec list and supplies clean per-block payloads).
-
-    Args:
-      comp_bytes_i32: [B, M] int32 bytes (payloads, chain order).
-      comp_lens: [B] int32 payload lengths.
-      out_sizes: python list of expected decoded sizes (each <= 64KB).
-
-    Returns (out [TOTR, 128] int32 device array whose byte stream starting
-    at byte 65536 is the continuous content, olen [B]).
-    """
-    B, M = comp_bytes_i32.shape
-    if M % 128:
-        pad = 128 - M % 128
-        comp_bytes_i32 = jnp.pad(comp_bytes_i32, ((0, 0), (0, pad)))
-        M += pad
-    sizes = [int(x) for x in out_sizes]
-    if any(x > 65536 for x in sizes):
-        raise ValueError("sg kernel blocks are limited to 64KB outputs")
-    N = -(-max(max(sizes, default=1), 1) // 128) * 128
-    total = sum(sizes)
-    if total + 65536 + N + 256 >= 2 ** 31:
-        # the kernel addresses the continuous output space with int32 byte
-        # offsets (cum); beyond ~2GB those wrap — fail loudly here instead
-        # of relying on callers' guards (sg.py falls back to the host path
-        # well before this, at its own documented 1GB limit)
-        raise ValueError("decode_blocks_sg output space exceeds the "
-                         "kernel's int32 addressing limit")
-    TOTR = 512 + -(-total // 128) + N // 128 + 2
-    cum = np.zeros((B,), np.int64)
-    if B > 1:
-        cum[1:] = np.cumsum(sizes[:-1])
-    ocap = jnp.asarray(np.asarray(sizes, np.int32))
-    return _decode_blocks_sg(comp_bytes_i32, comp_lens.astype(jnp.int32),
-                             jnp.asarray(cum.astype(np.int32)), ocap,
-                             M=M, N=N, TOTR=TOTR, interpret=on_cpu())
+def _dict_args(B, dict_rows, dict_lens):
+    if dict_rows is None:
+        return jnp.zeros((B, 0), jnp.int32), jnp.zeros((B,), jnp.int32)
+    return dict_rows, dict_lens.astype(jnp.int32)
 
 
 def decode_blocks(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
@@ -957,38 +241,18 @@ def decode_blocks(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
       dict_rows: optional [B, P] int32 dictionary bytes, RIGHT-aligned in
         each row (row i holds its dict in lanes [P-dict_lens[i], P)).
       dict_lens: [B] int32 dictionary lengths.
-
       out_caps: optional [B] per-row exact output capacity (defaults to
         out_cap); decoding past it reports -1, like LZ4_decompress_safe.
 
     Returns (out [B, out_cap] int32 bytes, olen [B] int32; -1 = malformed).
     """
-    B, M = comp_bytes_i32.shape
-    # DMA slices must be 128-lane aligned: pad M / N / P
-    if M % 128:
-        pad = 128 - M % 128
-        comp_bytes_i32 = jnp.pad(comp_bytes_i32, ((0, 0), (0, pad)))
-        M += pad
-    N = -(-out_cap // 128) * 128
-    if dict_rows is None:
-        P = 0
-        dict_rows = jnp.zeros((B, 1, 128), jnp.int32)
-        dict_lens = jnp.zeros((B,), jnp.int32)
-    else:
-        P = dict_rows.shape[-1]
-        if P % 128:  # pad LEFT to preserve right alignment
-            pad = 128 - P % 128
-            dict_rows = jnp.pad(dict_rows, ((0, 0), (pad, 0)))
-            P += pad
-        dict_rows = dict_rows.reshape(B, P // 128, 128)
-    if out_caps is None:
-        ocap = jnp.full((B,), out_cap, jnp.int32)
-    else:
-        ocap = out_caps.astype(jnp.int32)
-    out, olen = _decode_blocks(comp_bytes_i32, comp_lens.astype(jnp.int32),
-                               dict_rows, dict_lens.astype(jnp.int32), ocap,
-                               M=M, N=N, P=P, interpret=on_cpu())
-    return out[:, :out_cap], olen
+    B = comp_bytes_i32.shape[0]
+    dict_rows, dict_lens = _dict_args(B, dict_rows, dict_lens)
+    ocap = (jnp.full((B,), out_cap, jnp.int32) if out_caps is None
+            else out_caps.astype(jnp.int32))
+    return _decode_blocks(comp_bytes_i32, comp_lens.astype(jnp.int32),
+                          dict_rows, dict_lens, ocap, N=int(out_cap),
+                          resumable=False, interpret=on_cpu())
 
 
 def decode_blocks_dest_size(comp_bytes_i32: jax.Array,
@@ -1019,28 +283,95 @@ def decode_blocks_dest_size(comp_bytes_i32: jax.Array,
         resumes across output exhaustion only, matching how lz4sg.c uses
         the contract (whole-block payloads, room-limited outputs).
     """
-    B, M = comp_bytes_i32.shape
-    if M % 128:
-        pad = 128 - M % 128
-        comp_bytes_i32 = jnp.pad(comp_bytes_i32, ((0, 0), (0, pad)))
-        M += pad
-    N = -(-out_cap_max // 128) * 128
-    if dict_rows is None:
-        P = 0
-        dict_rows = jnp.zeros((B, 1, 128), jnp.int32)
-        dict_lens = jnp.zeros((B,), jnp.int32)
-    else:
-        P = dict_rows.shape[-1]
-        if P % 128:
-            pad = 128 - P % 128
-            dict_rows = jnp.pad(dict_rows, ((0, 0), (pad, 0)))
-            P += pad
-        dict_rows = dict_rows.reshape(B, P // 128, 128)
-    out, olen, cons = _decode_blocks(
-        comp_bytes_i32, comp_lens.astype(jnp.int32), dict_rows,
-        dict_lens.astype(jnp.int32), out_caps.astype(jnp.int32),
-        M=M, N=N, P=P, interpret=on_cpu(), resumable=True)
-    return out[:, :out_cap_max], olen, cons
+    B = comp_bytes_i32.shape[0]
+    dict_rows, dict_lens = _dict_args(B, dict_rows, dict_lens)
+    return _decode_blocks(comp_bytes_i32, comp_lens.astype(jnp.int32),
+                          dict_rows, dict_lens, out_caps.astype(jnp.int32),
+                          N=int(out_cap_max), resumable=True,
+                          interpret=on_cpu())
+
+
+# ---------------------------------------------------------------------------
+# chain: one program decodes a whole chain in order
+# ---------------------------------------------------------------------------
+
+def _chain_kernel(window: str, block: int, parallel: bool, interpret: bool):
+    """Blocks at meta-given places of one flat input and output.  window:
+    'fixed' (meta gives each output start and floor) or 'linked' (the
+    window is the previous ``block``-byte slot when that block filled
+    it).  ``parallel``: one program per block (independent blocks);
+    otherwise one program walks the chain in order."""
+    def kernel(meta, src, dst_in, dst, olen):
+        del dst_in                      # aliased to dst
+
+        def one(b, prev):
+            s0, n, o0, cap = meta[b, 0], meta[b, 1], meta[b, 2], meta[b, 3]
+            if window == "linked":
+                floor = jnp.where(b == 0, meta[b, 4],
+                                  jnp.where(prev == block, o0 - block, o0))
+            else:
+                floor = meta[b, 4]
+            status, _, op = lax.cond(
+                meta[b, 5] != 0,
+                lambda: _copy_stored(src, dst, s0, n, o0, cap),
+                lambda: _decode_block(src, dst, s0, n, o0, o0 + cap, floor,
+                                      interpret))
+            length = jnp.where(status == _DONE, op - o0, ERR_MALFORMED)
+            olen[b] = length
+            return length
+
+        if parallel:
+            one(pl.program_id(0), jnp.int32(0))
+        else:
+            lax.fori_loop(0, meta.shape[0], one, jnp.int32(0))
+    return kernel
+
+
+@functools.partial(jax.jit, static_argnames=("window", "block", "parallel",
+                                              "interpret"))
+def _decode_chain(meta, src, dst0, *, window, block, interpret,
+                  parallel=False):
+    B = meta.shape[0]
+    return triton_call(
+        _chain_kernel(window, block, parallel, interpret),
+        num_warps=NUM_WARPS, interpret=interpret,
+        grid=(B if parallel else 1,),
+        out_shape=(jax.ShapeDtypeStruct(dst0.shape, jnp.uint8),
+                   jax.ShapeDtypeStruct((B,), jnp.int32)),
+        input_output_aliases={2: 0},
+    )(meta, src, dst0)
+
+
+def _sizes_kernel(interpret: bool):
+    """Program b walks block b's tokens without moving a byte: its
+    decoded size, or -1 when it does not parse within its capacity.
+    meta[b] = (start, length, capacity, stored flag)."""
+    def kernel(meta, src, size):
+        b = pl.program_id(0)
+        n, cap = meta[b, 1], meta[b, 2]
+        status, _, op = _decode_block(src, None, meta[b, 0], n, 0, cap,
+                                      -(1 << 30), interpret, copy=False)
+        walked = jnp.where(status == _DONE, op, ERR_MALFORMED)
+        stored = jnp.where(n <= cap, n, ERR_MALFORMED)
+        size[b] = jnp.where(meta[b, 3] != 0, stored, walked)
+    return kernel
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def _block_sizes(meta, src, *, interpret):
+    B = meta.shape[0]
+    return triton_call(
+        _sizes_kernel(interpret), num_warps=NUM_WARPS, interpret=interpret,
+        grid=(B,), out_shape=jax.ShapeDtypeStruct((B,), jnp.int32),
+    )(meta, src)
+
+
+def _chain_meta(s0, n, o0, cap, floor, stored):
+    """[B, 6] per-block columns of a chain: compressed start and length,
+    output start, output capacity, window floor, stored flag."""
+    return jnp.asarray(np.stack(
+        [np.asarray(x, np.int64).astype(np.int32)
+         for x in (s0, n, o0, cap, floor, stored)], axis=1))
 
 
 def decode_blocks_linked(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
@@ -1053,7 +384,7 @@ def decode_blocks_linked(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
     dictionary via LZ4_compress_fast_continue / _usingDict): every block
     except the last must decode to exactly ``block_size`` bytes, which is
     how LZ4F compressors emit linked frames (lz4frame.c:575-682 buffers
-    input to whole blocks).
+    input to whole blocks).  A block after a short one sees no window.
 
     Args:
       comp_bytes_i32: [B, M] int32 bytes, block payloads in stream order.
@@ -1063,8 +394,7 @@ def decode_blocks_linked(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
       init_window: optional [1, block_size] int32 byte lanes seeding
         block 0's window (right-aligned content, e.g. the previous
         group's last decoded block when decoding a long chain in
-        pipelined groups — may be a device array, enabling
-        device-to-device window handoff with no host round-trip).
+        groups -- may be a device array: the handoff stays on device).
       init_window_len: its byte length (<= block_size).
 
     Returns (out [B, block_size] int32 bytes, olen [B]; -1 = malformed).
@@ -1072,578 +402,75 @@ def decode_blocks_linked(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
     B, M = comp_bytes_i32.shape
     if block_size % 128:
         raise ValueError("block_size must be a multiple of 128")
-    if M % 128:
-        pad = 128 - M % 128
-        comp_bytes_i32 = jnp.pad(comp_bytes_i32, ((0, 0), (0, pad)))
-        M += pad
-    N = P = block_size
-    plen = jnp.zeros((B,), jnp.int32)
+    N = block_size
     if init_window is not None and init_window_len:
-        dict_rows = init_window.reshape(1, P // 128, 128)
-        plen = plen.at[0].set(int(init_window_len))
+        head = init_window.reshape(N).astype(jnp.uint8)
+        plen = int(init_window_len)
     else:
-        dict_rows = jnp.zeros((1, P // 128, 128), jnp.int32)
-    ocap = jnp.full((B,), block_size, jnp.int32)
-    out, olen = _decode_blocks(comp_bytes_i32, comp_lens.astype(jnp.int32),
-                               dict_rows, plen, ocap,
-                               M=M, N=N, P=P, interpret=on_cpu(),
-                               linked=True)
-    return out, olen
+        head = jnp.zeros((N,), jnp.uint8)
+        plen = 0
+    dst0 = jnp.concatenate([head, jnp.zeros((B * N,), jnp.uint8)])
+    starts = N + N * np.arange(B)
+    meta = _chain_meta(M * np.arange(B), np.zeros(B), starts,
+                       np.full(B, N), starts - plen, np.zeros(B))
+    meta = meta.at[:, 1].set(comp_lens.astype(jnp.int32))
+    src = comp_bytes_i32.astype(jnp.uint8).reshape(B * M)
+    dst, olen = _decode_chain(meta, src, dst0, window="linked", block=N,
+                              interpret=on_cpu())
+    return dst[N:].reshape(B, N).astype(jnp.int32), olen
+
+
+SG_LEAD = 65536      # zero lead of the scatter-gather output space
+
+
+def decode_blocks_sg(comp_bytes_i32: jax.Array, comp_lens: jax.Array,
+                     out_sizes):
+    """Decode a scatter-gather chain: block k's output lands at byte
+    offset sum(out_sizes[:k]) of ONE continuous space, and its window is
+    the preceding 64 KB of that space regardless of block boundaries
+    (LZ4_decompress_fast_sg_extState semantics, lz4sg.c:536-695; the
+    host walks the iovec list and supplies clean per-block payloads).
+
+    Args:
+      comp_bytes_i32: [B, M] int32 bytes (payloads, chain order).
+      comp_lens: [B] int32 payload lengths.
+      out_sizes: python list of expected decoded sizes (each <= 64KB).
+
+    Returns (out [TOTR, 128] int32 device array whose byte stream starting
+    at byte 65536 is the continuous content, olen [B]).
+    """
+    B, M = comp_bytes_i32.shape
+    sizes = [int(x) for x in out_sizes]
+    if any(x > 65536 for x in sizes):
+        raise ValueError("sg kernel blocks are limited to 64KB outputs")
+    N = -(-max(max(sizes, default=1), 1) // 128) * 128
+    total = sum(sizes)
+    if total + SG_LEAD + N + 256 >= 2 ** 31:
+        # the kernel addresses the output space with int32 byte offsets
+        raise ValueError("decode_blocks_sg output space exceeds the "
+                         "kernel's int32 addressing limit")
+    TOTR = SG_LEAD // 128 + -(-total // 128) + N // 128 + 2
+    cum = np.zeros((B,), np.int64)
+    if B > 1:
+        cum[1:] = np.cumsum(sizes[:-1])
+    meta = _chain_meta(M * np.arange(B), np.zeros(B), SG_LEAD + cum,
+                       sizes, SG_LEAD + cum - np.minimum(cum, 65536),
+                       np.zeros(B))
+    meta = meta.at[:, 1].set(comp_lens.astype(jnp.int32))
+    src = comp_bytes_i32.astype(jnp.uint8).reshape(B * M)
+    dst, olen = _decode_chain(meta, src,
+                              jnp.zeros((TOTR * 128,), jnp.uint8),
+                              window="fixed", block=0, interpret=on_cpu())
+    return dst.reshape(TOTR, 128).astype(jnp.int32), olen
 
 
 # ---------------------------------------------------------------------------
-# stream decoder: one frame's block chain of ANY block size (64KB..4MB),
-# linked or independent, decoded as a single output stream through a
-# 128KB input ring (paged by DMA as the parse advances) and a 128KB
-# output ring in VMEM (LZ4's max match distance is 65535, lz4.c:287-288,
-# so the window always lives in the ring); completed 64KB halves are
-# flushed to HBM.  This is what decodes reference-CLI default files
-# (-B7, 4MB blocks, lz4io.c:182-188) on device.
+# stream: one frame's block chain of any block size, decoded as a single
+# output stream (what decodes reference-CLI default files: -B7 4MB blocks,
+# lz4io.c:182-188, and legacy 8MB blocks)
 # ---------------------------------------------------------------------------
 
-PAGE = 65536            # ring half (bytes)
-PAGE_ROWS = PAGE // 128
-RING_MASK = 2 * PAGE - 1
-
-
-def _make_stream_decode_kernel(linked: bool):
-    def kernel(bstart_ref, clen_ref, ocap_ref, stored_ref, vals_hbm,
-               out_hbm, olen_ref, vsmem, cvmem, ovmem, state,
-               sem_v, sem_c, sem_o):
-        b = pl.program_id(0)
-        n = clen_ref[b]
-        g0 = bstart_ref[b]              # global input byte of block start
-                                        # (ANY byte offset: raw frames
-                                        # upload once, payloads in place)
-        lane = lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-
-        @pl.when(b == 0)
-        def _init():
-            state[0] = 0                # opos: global output byte position
-            state[1] = 0                # loaded_hi: input bytes paged in
-            state[2] = 0                # flushed: output bytes DMA'd out
-
-        base = state[0]                 # output position at block start
-        olim = base + jnp.minimum(ocap_ref[b], 1 << 23)
-
-        # Ring bookkeeping (loaded_hi ``hi``, flushed ``fl``) is carried
-        # through the sequence loop as REGISTER state, not SMEM: a scalar
-        # store per sequence serializes the issue pipeline (measured cost
-        # model, docs/ARCHITECTURE.md) — SMEM state[] is written once per
-        # block, at the end of the grid step.
-
-        def load_page(hi):
-            """DMA input bytes [hi, hi+PAGE) into the ring half."""
-            row = hi >> 7
-            half = (hi >> 16) & 1
-            cp_s = pltpu.make_async_copy(
-                vals_hbm.at[pl.ds(row, PAGE_ROWS), :],
-                vsmem.at[pl.ds(half * PAGE_ROWS, PAGE_ROWS), :], sem_v)
-            cp_s.start()
-            cp_v = pltpu.make_async_copy(
-                vals_hbm.at[pl.ds(row, PAGE_ROWS), :],
-                cvmem.at[pl.ds(half * PAGE_ROWS, PAGE_ROWS), :], sem_c)
-            cp_v.start()
-            cp_s.wait()
-            cp_v.wait()
-            cvmem[pl.ds(half * PAGE_ROWS, PAGE_ROWS), :] = \
-                cvmem[pl.ds(half * PAGE_ROWS, PAGE_ROWS), :] & 0xFF
-
-            @pl.when(half == 0)
-            def _():
-                # mirror ring rows 0-1 so 2- and 3-row window reads stay
-                # contiguous across the wrap
-                cvmem[pl.ds(2 * PAGE_ROWS, 2), :] = cvmem[pl.ds(0, 2), :]
-            return hi + PAGE
-
-        def ensure(pos, hi):
-            """Page the input ring forward so byte ``pos+16`` is loaded."""
-            return lax.while_loop(lambda h: h < pos + 20, load_page, hi)
-
-        def sval(p):
-            q = p & RING_MASK
-            return vsmem[q >> 7, q & 127]
-
-        def sbyte(p):
-            return sval(p) & 0xFF
-
-        def flush(upto, fl):
-            """DMA completed output pages [flushed, upto) to HBM."""
-            def body(fl):
-                half = (fl >> 16) & 1
-                cp_o = pltpu.make_async_copy(
-                    ovmem.at[pl.ds(half * PAGE_ROWS, PAGE_ROWS), :],
-                    out_hbm.at[pl.ds(fl >> 7, PAGE_ROWS), :], sem_o)
-                cp_o.start()
-                cp_o.wait()
-                return fl + PAGE
-
-            return lax.while_loop(lambda f: f + PAGE <= upto, body, fl)
-
-        def ostore(r, row):
-            """Store an output ring row; ring rows 0 and 1 are mirrored at
-            indices 2*PAGE_ROWS / 2*PAGE_ROWS+1 so window loads can be one
-            contiguous [2,128] or [3,128] read even across the wrap (a
-            second unconditional dynamic store was measured SLOWER than
-            this rarely-taken branch: dyn-sublane stores cost ~13ns)."""
-            ovmem[pl.ds(r, 1), :] = row
-
-            @pl.when(r < 2)
-            def _():
-                ovmem[pl.ds(r + 2 * PAGE_ROWS, 1), :] = row
-
-        def owindow(a):
-            """[1,128] v with v[lane] = output ring byte at global a+lane."""
-            q = a & RING_MASK
-            f = q >> 7
-            w = ovmem[pl.ds(f, 2), :]     # f=1023 reads the mirror row
-            sl = q & 127
-            rot = pltpu.roll(w, -sl, axis=1)
-            return jnp.where(lane < 128 - sl, rot[0:1], rot[1:2])
-
-        def cwindow(a):
-            q = a & RING_MASK
-            f = q >> 7
-            w = cvmem[pl.ds(f, 2), :]
-            sl = q & 127
-            rot = pltpu.roll(w, -sl, axis=1)
-            return jnp.where(lane < 128 - sl, rot[0:1], rot[1:2])
-
-        def orow(opos):
-            return (opos & RING_MASK) >> 7
-
-        def merge(carry, v, cpos, take):
-            m = jnp.logical_and(lane >= cpos, lane < cpos + take)
-            return jnp.where(m, v, carry)
-
-        lit12 = _make_lit12(sval, merge, lane)
-
-        def read_ext(nibble, ip, iend, hi):
-            def cond(c):
-                _, _, ok, stop, _ = c
-                return jnp.logical_and(ok, jnp.logical_not(stop))
-
-            def body(c):
-                extra, ip2, ok, _, hi = c
-                hi = ensure(ip2, hi)
-                ok2 = ip2 < iend
-                bb = jnp.where(ok2, sbyte(ip2), 0)
-                return (extra + bb, ip2 + jnp.int32(1),
-                        jnp.logical_and(ok, ok2), bb != 255, hi)
-
-            extra, ip2, ok, _, hi = lax.while_loop(
-                cond, body, (jnp.int32(0), ip, jnp.bool_(True),
-                             nibble != 15, hi))
-            return extra, ip2, ok, hi
-
-        def copy_literals(carry, opos, src, litlen, hi, fl):
-            def body(st):
-                carry, opos, src, rem, hi, fl = st
-                hi = ensure(src + 128, hi)
-                cpos = opos & 127
-                take = jnp.minimum(128 - cpos, rem)
-                v = cwindow(src - cpos)
-                carry = merge(carry, v, cpos, take)
-                opos2 = opos + take
-
-                @pl.when((opos2 & 127) == 0)
-                def _():
-                    ostore(orow(opos2 - 1), carry)
-                fl = lax.cond((opos2 & 127) == 0,
-                              lambda f: flush(opos2, f),
-                              lambda f: f, fl)
-                return carry, opos2, src + take, rem - take, hi, fl
-
-            carry, opos, _, _, hi, fl = lax.while_loop(
-                lambda st: st[3] > 0, body,
-                (carry, opos, src, litlen, hi, fl))
-            return carry, opos, hi, fl
-
-        def copy_match(carry, opos, offset, mlen, fl):
-            def body(st):
-                carry, opos, rem, o_eff, fl = st
-                cpos = opos & 127
-                ostore(orow(opos), carry)
-                take = jnp.minimum(jnp.minimum(128 - cpos, rem), o_eff)
-                v = owindow(opos - o_eff - cpos)
-                carry = merge(carry, v, cpos, take)
-                opos2 = opos + take
-
-                @pl.when((opos2 & 127) == 0)
-                def _():
-                    ostore(orow(opos2 - 1), carry)
-                fl = lax.cond((opos2 & 127) == 0,
-                              lambda f: flush(opos2, f),
-                              lambda f: f, fl)
-                rem2 = rem - take
-                copied2 = mlen - rem2
-                o_eff = jnp.where(2 * o_eff - offset <= copied2,
-                                  2 * o_eff, o_eff)
-                return carry, opos2, rem2, o_eff, fl
-
-            carry, opos, _, _, fl = lax.while_loop(
-                lambda st: st[2] > 0, body, (carry, opos, mlen, offset, fl))
-            return carry, opos, fl
-
-        iend = g0 + n
-        # window floor: linked = whole stream so far (the ring only holds
-        # the last 128KB, but offsets are <= 65535 so any valid match
-        # source is resident); independent = this block's start
-        floor = jnp.int32(0) if linked else base
-
-        def slow_seq(ip, opos, carry, ll_nib, ll_f, litip_f, ml_nib, cpos,
-                     hi, fl, mlen_f, offset_f, ipadv_f):
-            ip = ip + 1
-            ext, ip, ok, hi = read_ext(ll_nib, ip, iend, hi)
-            litlen = ll_nib + ext
-
-            ok = jnp.logical_and(ok, ip + litlen <= iend)
-            ok = jnp.logical_and(ok, opos + litlen <= olim)
-
-            carry, opos, hi, fl = lax.cond(
-                jnp.logical_and(ok, litlen > 0),
-                lambda c, o, h, f: copy_literals(c, o, ip, litlen, h, f),
-                lambda c, o, h, f: (c, o, h, f), carry, opos, hi, fl)
-            ip = ip + litlen
-
-            ended = jnp.logical_and(ok, ip == iend)
-
-            hi = ensure(ip, hi)
-            ok_m = jnp.logical_and(ok, ip + 2 <= iend)
-            offset = jnp.where(ok_m, sval(ip) & 0xFFFF, 1)
-            ip_m = ip + 2
-            ext2, ip_m, ok_e2, hi = read_ext(ml_nib, ip_m, iend, hi)
-            mlen = ml_nib + ext2 + 4
-            ok_m = jnp.logical_and(ok_m, ok_e2)
-            ok_m = jnp.logical_and(ok_m, offset > 0)
-            ok_m = jnp.logical_and(ok_m, offset <= opos - floor)
-            ok_m = jnp.logical_and(ok_m, opos + mlen <= olim)
-
-            do_match = jnp.logical_and(jnp.logical_not(ended), ok_m)
-
-            carry, opos, fl = lax.cond(
-                do_match,
-                lambda c, o, f: copy_match(c, o, offset, mlen, f),
-                lambda c, o, f: (c, o, f), carry, opos, fl)
-            ip = jnp.where(do_match, ip_m, ip)
-
-            status = jnp.where(ended, 1, jnp.where(do_match, 0, 2))
-            return (ip.astype(jnp.int32), opos.astype(jnp.int32),
-                    status.astype(jnp.int32), carry, hi, fl)
-
-        def fast_seq(ip, opos, carry, ll_nib, ll, lit_ip, ml_nib, cpos,
-                     hi, fl, mlen, offset, ip_adv):
-            # straight-line common case, widened to the batch kernel's
-            # envelope: up to 12 literals injected from three broadcast
-            # val32 words, one TERMINAL match-length extension byte, no
-            # row completion, no overlap doubling; mlen/offset/ip_adv
-            # precomputed by seq_body (issue-bound scalar core).
-            # PAIRED like the batch kernel's fast path (docs/SOL.md): the
-            # next sequence is parsed too and retired in the same
-            # iteration when it is fast-class, row-local, and its match
-            # source stays below this sequence's match output.  Residency:
-            # the refill guard keeps [ip, ip+272) loaded.  When B's token
-            # has a literal-extension nibble, sval(mposb) can address up
-            # to ~ip+290 — PAST that guarantee — and may read stale ring
-            # bytes; that read is safe only because `pair` requires
-            # llb <= 12, which is impossible when hasb is set, so the
-            # stale value is provably discarded.  Do not widen the pair
-            # admission past llb <= 12 without extending the refill guard.
-            ip1 = lit_ip
-            ipm = ip1 + ll
-            opos1 = opos + ll
-            cpos1 = cpos + ll
-            opos2 = opos1 + mlen
-
-            ended = ipm == iend
-            ok_l = jnp.logical_and(ipm <= iend, opos1 <= olim)
-            ok_m = jnp.logical_and(
-                jnp.logical_and(ok_l, ip_adv <= iend),
-                jnp.logical_and(offset > 0, offset <= opos1 - floor))
-            ok_m = jnp.logical_and(ok_m, opos2 <= olim)
-            do_match = jnp.logical_and(jnp.logical_not(ended), ok_m)
-
-            # ---- sequence B at ip_adv (pair lane) ----
-            vb0 = sval(ip_adv)
-            llnb = (vb0 >> 4) & 15
-            mlnb = vb0 & 15
-            lleb = (vb0 >> 8) & 0xFF
-            hasb = llnb == 15
-            llb = llnb + jnp.where(hasb, lleb, 0)
-            lit_ipb = ip_adv + 1 + jnp.where(hasb, 1, 0)
-            mposb = lit_ipb + llb
-            v2b = sval(mposb)
-            offb = v2b & 0xFFFF
-            extbb = (v2b >> 16) & 0xFF
-            is_extb = jnp.where(mlnb == 15, 1, 0)
-            mlenb = mlnb + 4 + is_extb * extbb
-            ip_advb = mposb + 2 + is_extb
-            cposb = cpos1 + mlen
-            oposb1 = opos2 + llb
-            cposb1 = cposb + llb
-            oposb2 = oposb1 + mlenb
-            ok_eb = jnp.logical_and(
-                jnp.logical_or(mlnb < 15, extbb != 255),
-                jnp.logical_or(jnp.logical_not(hasb), lleb != 255))
-            pair = jnp.logical_and(
-                jnp.logical_and(do_match,
-                                jnp.logical_and(ok_eb, offb >= mlenb)),
-                jnp.logical_and(llb <= 12, cposb1 + mlenb <= 123))
-            pair = jnp.logical_and(pair, mposb != iend)
-            pair = jnp.logical_and(pair, ip_advb <= iend)
-            pair = jnp.logical_and(pair, oposb2 <= olim)
-            pair = jnp.logical_and(
-                pair, jnp.logical_and(offb > 0, offb <= oposb1 - floor))
-            pair = jnp.logical_and(pair, oposb1 - offb + mlenb <= opos1)
-
-            carry, _ = lit12(carry, ip1, cpos, ll, two_rows=False)
-
-            ostore(orow(opos), carry)
-            v = owindow(opos1 - offset - cpos1)
-            vb = owindow(oposb1 - offb - cposb1)
-            carry = merge(carry, v, cpos1, jnp.where(do_match, mlen, 0))
-            carry, _ = lit12(carry, lit_ipb, cposb,
-                             jnp.where(pair, llb, 0), two_rows=False)
-            carry = merge(carry, vb, cposb1, jnp.where(pair, mlenb, 0))
-
-            ip = jnp.where(pair, ip_advb,
-                           jnp.where(do_match, ip_adv, ipm))
-            opos = jnp.where(pair, oposb2,
-                             jnp.where(do_match, opos2,
-                                       jnp.where(ok_l, opos1, opos)))
-            status = jnp.where(jnp.logical_and(ended, ok_l), 1,
-                               jnp.where(do_match, 0, 2))
-            return (ip.astype(jnp.int32), opos.astype(jnp.int32),
-                    status.astype(jnp.int32), carry, hi, fl)
-
-        def mid_seq(ip, opos, carry, ll_nib, ll, lit_ip, ml_nib, cpos,
-                    hi, fl, mlen, offset, ip_adv):
-            # one-row-crossing analog of the batch kernel's mid path (see
-            # _make_decode_kernel): literal runs up to 247 bytes come from
-            # ONE 3-row input-ring roll; ring-row indexing for the match;
-            # plus a page flush when the crossing completes a 64KB page.
-            # All bytes [ip, ip+272) are resident (seq_body's refill
-            # guard), so no ensure() is needed here.
-            ipm = lit_ip + ll
-            opos1 = opos + ll
-            cpos1 = cpos + ll        # <= 247 (tot <= 251, mlen >= 4)
-            opos2 = opos1 + mlen
-            ZERO = jnp.zeros((1, 128), jnp.int32)
-
-            def lit_broadcast(carry):
-                # ll <= 12: broadcast injection, no roll (_make_lit12)
-                return lit12(carry, lit_ip, cpos, ll, two_rows=True)
-
-            def lit_roll(carry):
-                # long run (13..247 bytes): one 3-row input-ring roll
-                ql = (lit_ip - cpos) & RING_MASK
-                f_l = ql >> 7
-                sl_l = ql & 127
-                w_l = cvmem[pl.ds(f_l, 3), :]  # rows 1023+ = the mirrors
-                rot_l = pltpu.roll(w_l, -sl_l, axis=1)
-                lv1 = jnp.where(lane < 128 - sl_l,
-                                rot_l[0:1], rot_l[1:2])
-                lv2 = jnp.where(lane < 128 - sl_l,
-                                rot_l[1:2], rot_l[2:3])
-                return (merge(carry, lv1, cpos, ll),
-                        merge(ZERO, lv2, cpos - 128, ll))
-
-            carry, carry2 = lax.cond(ll <= 12, lit_broadcast, lit_roll,
-                                     carry)
-
-            ended = ipm == iend
-            ok_l = jnp.logical_and(ipm <= iend, opos1 <= olim)
-
-            r_a = orow(opos)
-            r_b = (r_a + 1) & (2 * PAGE_ROWS - 1)
-            ostore(r_a, carry)
-            cross_l = cpos1 >= 128
-
-            @pl.when(cross_l)
-            def _():
-                ostore(r_b, carry2)
-
-            c = cpos1 - jnp.where(cross_l, 128, 0)
-            r1 = jnp.where(cross_l, r_b, r_a)
-            carry = jnp.where(cross_l, carry2, carry)
-            carry2 = jnp.where(cross_l, ZERO, carry2)
-
-            q = (opos1 - offset - c) & RING_MASK
-            f = q >> 7
-            sl = q & 127
-            w = ovmem[pl.ds(f, 3), :]
-            rot = pltpu.roll(w, -sl, axis=1)
-            v1 = jnp.where(lane < 128 - sl, rot[0:1], rot[1:2])
-            v2 = jnp.where(lane < 128 - sl, rot[1:2], rot[2:3])
-            mcarry = merge(carry, v1, c, mlen)
-            mcarry2 = merge(carry2, v2, c - 128, mlen)
-
-            ok_m = jnp.logical_and(
-                jnp.logical_and(ok_l, ip_adv <= iend),
-                jnp.logical_and(offset > 0, offset <= opos1 - floor))
-            ok_m = jnp.logical_and(ok_m, opos2 <= olim)
-
-            do_match = jnp.logical_and(jnp.logical_not(ended), ok_m)
-            cross_m = jnp.logical_and(do_match, c + mlen >= 128)
-
-            @pl.when(cross_m)
-            def _():
-                ostore(r1, mcarry)
-
-            carry = jnp.where(cross_m, mcarry2,
-                              jnp.where(do_match, mcarry, carry))
-            ip = jnp.where(do_match, ip_adv, ipm)
-            opos_new = jnp.where(do_match, opos2,
-                                 jnp.where(ok_l, opos1, opos))
-            fl = lax.cond((opos_new >> 16) > (opos >> 16),
-                          lambda f_: flush(opos_new, f_),
-                          lambda f_: f_, fl)
-            status = jnp.where(jnp.logical_and(ended, ok_l), 1,
-                               jnp.where(do_match, 0, 2))
-            return (ip.astype(jnp.int32), opos_new.astype(jnp.int32),
-                    status.astype(jnp.int32), carry, hi, fl)
-
-        def seq_body(st2):
-            ip, opos, status, carry, hi, fl = st2
-            # The page check rides the loop as a RARE branch instead of an
-            # inline while_loop: an inner loop in the hot body forces the
-            # carry vector and scalars through spill slots every sequence
-            # (measured ~1.8x).  refill() makes no parse progress — it
-            # pages the ring and the next iteration re-enters with the
-            # bytes resident.
-            def refill():
-                # page so the mid path's whole envelope (1 token + 1 lit
-                # ext + 247 literals + match header, < 272 bytes) is
-                # resident; the input upload carries 2*PAGE+256 slack so
-                # the lookahead never DMAs past the buffer
-                return (ip, opos, status, carry, ensure(ip + 252, hi), fl)
-
-            def work():
-                return seq_work(ip, opos, status, carry, hi, fl)
-
-            return lax.cond(ip + 272 <= hi, work, refill)
-
-        def seq_work(ip, opos, status, carry, hi, fl):
-            v = sval(ip)
-            token = v & 0xFF
-            ll_nib = token >> 4
-            ml_nib = token & 15
-            cpos = opos & 127
-            lle_b = sval(ip + 1) & 0xFF
-            has_lle = ll_nib == 15
-            ll = ll_nib + jnp.where(has_lle, lle_b, 0)
-            lit_ip = ip + 1 + jnp.where(has_lle, 1, 0)
-            mpos = lit_ip + ll
-            is_ext = jnp.where(ml_nib == 15, 1, 0)
-            extb = sval(mpos + 2) & 0xFF
-            mlen = ml_nib + 4 + is_ext * extb
-            offset = sval(mpos) & 0xFFFF
-            ip_adv = mpos + 2 + is_ext
-            ok_ext = jnp.logical_and(
-                jnp.logical_or(ml_nib < 15, extb != 255),
-                jnp.logical_or(jnp.logical_not(has_lle), lle_b != 255))
-            base_ok = jnp.logical_and(ok_ext, offset >= mlen)
-            tot = cpos + ll + mlen
-            fast = jnp.logical_and(jnp.logical_and(base_ok, ll <= 12),
-                                   tot <= 123)
-            midc = jnp.logical_and(base_ok, tot <= 251)
-
-            def not_fast(ip, opos, carry, ll_nib, ll, lit_ip, ml_nib,
-                         cpos, hi, fl, mlen, offset, ip_adv):
-                return lax.cond(midc, mid_seq, slow_seq,
-                                ip, opos, carry, ll_nib, ll, lit_ip,
-                                ml_nib, cpos, hi, fl, mlen, offset, ip_adv)
-
-            return lax.cond(fast, fast_seq, not_fast,
-                            ip, opos, carry, ll_nib, ll, lit_ip, ml_nib,
-                            cpos, hi, fl, mlen, offset, ip_adv)
-
-        def seq_cond(st2):
-            ip, opos, status, _, _h, _f = st2
-            return jnp.logical_and(status == 0, ip < iend)
-
-        def do_parse():
-            # carry-in: the partial row of the previous block's output
-            carry0 = ovmem[pl.ds(orow(base), 1), :]
-            ip, opos, status, carry, hi, fl = lax.while_loop(
-                seq_cond, seq_body,
-                (g0, base, jnp.int32(0), carry0, state[1], state[2]))
-            ostore(orow(opos), carry)
-            return opos, status, hi, fl
-
-        def do_stored():
-            # stored (uncompressed) block: a straight ring copy of n input
-            # bytes (lz4frame.c:518-524 passthrough, done in-kernel so raw
-            # frames never need host-side literal-block splicing)
-            carry0 = ovmem[pl.ds(orow(base), 1), :]
-            ok = base + n <= olim
-            nn = jnp.where(ok, n, 0)
-            carry, opos, hi, fl = copy_literals(carry0, base, g0, nn,
-                                                state[1], state[2])
-            ostore(orow(opos), carry)
-            return opos, jnp.where(ok, 1, 2).astype(jnp.int32), hi, fl
-
-        opos, status, hi, fl = lax.cond(stored_ref[b] != 0, do_stored,
-                                        do_parse)
-        ok_blk = status == 1
-        olen_ref[b] = jnp.where(ok_blk, opos - base, ERR_MALFORMED)
-        state[0] = jnp.where(ok_blk, opos, base)
-        state[1] = hi
-        state[2] = fl
-
-        # final flush on the last block (partial page incl. current row)
-        @pl.when(b == pl.num_programs(0) - 1)
-        def _final_flush():
-            end_row = (opos >> 7) + 1
-
-            def body(f):
-                half = (f >> 16) & 1
-                cp_o = pltpu.make_async_copy(
-                    ovmem.at[pl.ds(half * PAGE_ROWS, PAGE_ROWS), :],
-                    out_hbm.at[pl.ds(f >> 7, PAGE_ROWS), :], sem_o)
-                cp_o.start()
-                cp_o.wait()
-                return f + PAGE
-
-            lax.while_loop(lambda f: f >> 7 < end_row, body, fl)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("TR", "OR", "linked",
-                                              "interpret"))
-def _decode_stream(vals_rows, bstart, clen, ocap, stored, *, TR, OR, linked,
-                   interpret):
-    B = clen.shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(B,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=(
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((2 * PAGE_ROWS, 128), jnp.int32),
-            pltpu.VMEM((2 * PAGE_ROWS + 2, 128), jnp.int32),
-            pltpu.VMEM((2 * PAGE_ROWS + 2, 128), jnp.int32),
-            pltpu.SMEM((4,), jnp.int32),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    out, olen = pl.pallas_call(
-        _make_stream_decode_kernel(linked),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((OR, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B,), jnp.int32),
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(bstart, clen, ocap, stored, vals_rows)
-    return out, olen
+PAGE = 65536
 
 
 def decode_stream(payloads, block_size: int, content_cap: int,
@@ -1654,7 +481,8 @@ def decode_stream(payloads, block_size: int, content_cap: int,
       payloads: list of compressed block payloads (stream order; stored
         blocks must be pre-wrapped as literal blocks by the caller).
       block_size: the frame's block size (64KB..4MB, multiple of 64KB).
-      content_cap: total decoded capacity (each block <= block_size).
+      content_cap: total decoded capacity (each block <= block_size);
+        the output is sized from the blocks' measured sizes instead.
       linked: blockMode (window crosses block boundaries when True).
       out_caps: optional per-block decoded capacities (e.g. exact stored
         lengths); defaults to block_size each.  A mid-stream flushed
@@ -1666,22 +494,14 @@ def decode_stream(payloads, block_size: int, content_cap: int,
     """
     if block_size % PAGE:
         raise ValueError("block_size must be a multiple of 64KB")
-    B = len(payloads)
-    bstart = np.zeros((B,), np.int32)
-    clen = np.zeros((B,), np.int32)
-    pos = 0
-    for i, p in enumerate(payloads):
-        bstart[i] = pos * 128
-        clen[i] = len(p)
-        pos += -(-len(p) // 128)
-    total_rows = pos + 2 * PAGE_ROWS + 2   # ring lookahead slack
-    arr = np.zeros((total_rows * 128,), np.uint8)
-    for i, p in enumerate(payloads):
-        o = bstart[i]
-        arr[o:o + len(p)] = np.frombuffer(bytes(p), np.uint8)
-    stored = np.zeros((B,), np.int32)
-    return decode_stream_raw(arr, bstart, clen, stored, block_size,
-                             content_cap, linked, out_caps=out_caps)
+    starts = np.zeros((len(payloads),), np.int64)
+    if payloads:
+        starts[1:] = np.cumsum([len(p) for p in payloads])[:-1]
+    flat = np.frombuffer(b"".join(bytes(p) for p in payloads), np.uint8)
+    return decode_stream_raw(flat, starts, [len(p) for p in payloads],
+                             np.zeros((len(payloads),), np.int32),
+                             block_size, content_cap, linked,
+                             out_caps=out_caps)
 
 
 def decode_stream_raw(flat_u8: np.ndarray, bstart, clen, stored,
@@ -1693,55 +513,45 @@ def decode_stream_raw(flat_u8: np.ndarray, bstart, clen, stored,
     ``stored`` flags mark uncompressed blocks (copied in-kernel).
     """
     B = len(bstart)
-    # bucket every static shape (input rows, output rows, block count) to
-    # powers of two so distinct file sizes reuse compiled kernels instead
-    # of recompiling per size (first compile is ~tens of seconds)
-    def _pow2(x, lo):
-        n = lo
-        while n < x:
-            n *= 2
-        return n
-
-    total = len(flat_u8) + 2 * PAGE + 256
-    total = _pow2(total, 4 * PAGE)
-    total_rows = total // 128
-    if total_rows * 128 != len(flat_u8):
-        arr = np.zeros((total_rows * 128,), np.uint8)
-        arr[:len(flat_u8)] = flat_u8
-    else:
-        arr = flat_u8
-    packed = jnp.asarray(
-        np.ascontiguousarray(arr).view("<i4").reshape(total_rows, 32))
-    from .common import words_to_val32_2d
-    vals = words_to_val32_2d(packed)
-    BP = _pow2(max(B, 4), 4)
-    ocaps = np.zeros((BP,), np.int32)
-    if out_caps is None:
-        # every block may legally decode up to block_size; do NOT drain a
-        # shared pool (a short flushed mid-stream block would starve its
-        # successors' caps and fail a valid frame)
-        ocaps[:B] = block_size
-    else:
-        ocaps[:B] = np.asarray(out_caps, np.int32)
-    # the kernel tracks output positions as int32; fail loudly (to the
-    # caller's host-fallback policy) before they can wrap
-    cap_total = int(ocaps.sum())
-    if cap_total + 2 * PAGE + 256 >= 2 ** 31 or \
-            total_rows * 128 >= 2 ** 31:
+    interpret = on_cpu()
+    # static shapes (input bytes, output bytes, block count) are bucketed
+    # to powers of two so distinct file sizes reuse compiled kernels
+    total = bucket_pow2(len(flat_u8) + 256, 4 * PAGE)
+    if total >= 2 ** 31:
+        raise ValueError("decode_stream input exceeds the kernel's int32 "
+                         "addressing limit")
+    src = np.zeros((total,), np.uint8)
+    src[:len(flat_u8)] = flat_u8
+    src = jnp.asarray(src)
+    BP = bucket_pow2(B, 4)
+    # padding blocks are empty stored blocks: they copy zero bytes
+    pad = lambda x, fill: np.concatenate(    # noqa: E731
+        [np.asarray(x, np.int64), np.full(BP - B, fill, np.int64)])
+    starts, lens, flags = pad(bstart, 0), pad(clen, 0), pad(stored, 1)
+    caps = pad(np.full(B, block_size) if out_caps is None else out_caps, 0)
+    caps = np.minimum(caps, 1 << 23)
+    # pass 1: every block's decoded size, in parallel; a block that does
+    # not parse is reported as malformed and decodes nothing
+    sizes = np.asarray(_block_sizes(
+        jnp.asarray(np.stack([starts, lens, caps, flags], 1).astype(
+            np.int32)), src, interpret=interpret)).astype(np.int64)
+    bad = sizes < 0
+    sizes = np.where(bad, 0, sizes)
+    ostart = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    out_total = int(sizes.sum())
+    if out_total + 256 >= 2 ** 31:
+        # output positions are int32; fail loudly (to the caller's
+        # host-fallback policy) before they can wrap
         raise ValueError("decode_stream output space exceeds the kernel's "
                          "int32 addressing limit")
-    # padding blocks are empty stored blocks: they copy zero bytes and
-    # report olen 0 without disturbing the stream position
-    bstart_p = np.zeros((BP,), np.int32)
-    bstart_p[:B] = np.asarray(bstart, np.int32)
-    clen_p = np.zeros((BP,), np.int32)
-    clen_p[:B] = np.asarray(clen, np.int32)
-    stored_p = np.ones((BP,), np.int32)
-    stored_p[:B] = np.asarray(stored, np.int32)
-    OR = -(-cap_total // 128) + PAGE_ROWS + 2
-    OR = _pow2(-(-OR // PAGE_ROWS) * PAGE_ROWS, 4 * PAGE_ROWS)
-    out, olen = _decode_stream(
-        vals, jnp.asarray(bstart_p), jnp.asarray(clen_p),
-        jnp.asarray(ocaps), jnp.asarray(stored_p),
-        TR=total_rows, OR=OR, linked=linked, interpret=on_cpu())
-    return out, olen[:B]
+    OR = bucket_pow2(-(-out_total // 128) + 2, 4 * PAGE // 128)
+    # pass 2: each block decodes into its place; the window floor is the
+    # stream start (linked) or the block's own start (independent)
+    meta = _chain_meta(starts, np.where(bad, 0, lens), ostart, sizes,
+                       np.zeros(BP) if linked else ostart,
+                       np.where(bad, 1, flags))
+    dst, olen = _decode_chain(
+        meta, src, jnp.zeros((OR * 128,), jnp.uint8), window="fixed",
+        block=0, parallel=not linked, interpret=interpret)
+    olen = np.where(bad, ERR_MALFORMED, np.asarray(olen))
+    return dst.reshape(OR, 128).astype(jnp.int32), olen[:B]

@@ -1,102 +1,68 @@
-"""Pallas TPU block encoder (fast/greedy) with sorted-candidate matching.
+"""LZ4 block encoder (fast/greedy): XLA match index, Triton scan kernel.
 
-Parity: ``LZ4_compress_fast`` semantics (reference lz4.c:510-800) — greedy
+Parity: ``LZ4_compress_fast`` semantics (reference lz4.c:510-800) -- greedy
 parse, skip acceleration (lz4.c:586-594), backward extension (lz4.c:635),
 spec parsing restrictions (last 5 literals, 12-byte match tail).  Output
 is a valid LZ4 block stream; byte-identity with the C encoder is NOT a
 goal (the spec allows any parse), ratio parity is.
 
-TPU-first design (round 3): the reference's serial hash table — probe,
-validate, insert at every scanned position — is the wrong structure for
-this core: a scalar SMEM store per position serializes the issue pipeline
-(measured: ~28ns/position, docs/ARCHITECTURE.md).  Instead the match
-index is built by the VPU as a *sorted-candidate pass* before the scan:
+The reference's serial hash table -- probe, validate, insert at every
+scanned position -- is replaced by a *sorted-candidate pass* that XLA runs
+over whole rows before the scan:
 
-  cand_delta_rows: sort (val32, position) per row — equal 4-byte words
-  become sort-neighbours, so each position's nearest previous occurrence
-  is one neighbour diff; a second sort un-permutes the deltas back to
-  position order.
+  cand_delta_rows: sort (val32, position) per row -- equal 5-byte
+  sequences become sort neighbours, so each position's nearest previous
+  occurrence is one neighbour diff; a second sort un-permutes the deltas
+  back to position order.
 
-The scalar kernel then reads ``delta[p]`` (0 = no candidate in window):
-EXACT candidates (no hash collisions, no validation load), no table, no
-stores in the scan loop — every load pipelines.  Emitted offsets are
-``delta`` itself, in [1, 65535] by construction, which structurally
-excludes the offset-0 corruption class (docs/STRIDE2_BUG.md).  Candidate
-density also beats the reference's table (every position is indexed; the
-C encoder skips inserts inside matches, lz4.c:598-612 vs 733-736).
+The scan then reads ``delta[p]`` (0 = no candidate in window): EXACT
+candidates (no hash collisions, no validation load) and no table stores
+in the scan loop.  Emitted offsets are ``delta`` itself, in [1, 65535] by
+construction, which structurally excludes the offset-0 corruption class
+(docs/STRIDE2_BUG.md).  A barren-jump table (distance to the next
+candidate) lets the scan leap candidate-free runs.
 
-The scalar core remains issue-bound, so the loop stays organised around
-op count:
+The greedy parse is sequential inside a block, so one Triton program
+(one warp) scans each block: candidate reads and match extension are
+scalar loads of ``val32`` lanes (val32[p] = LE32 word at byte p, so a
+4-byte compare is one load), literal runs move as masked vector copies.
+Independent and linked blocks share the scan body; a linked block's row
+is [previous block | block], so matches reach into the previous 64 KB
+(LZ4_compress_fast_continue prefix mode, lz4.c:990-1045).
 
-* Input bytes arrive as ``val32`` lanes: val32[p] = LE32 word at byte p;
-  4-byte match verification and stride-4 extension are single loads.
-* The match tail (<4 equal bytes) is computed branchlessly from the XOR
-  of the mismatching words instead of a byte loop.
-* Sequence emission takes a straight-line fast path when both lengths fit
-  their token nibbles (the common case); length extensions branch out,
-  and literal copies move 16 bytes per loop iteration (the scan's cost
-  is while-loop iteration count, docs/SOL.md).
-* min_match mode (the decode-speed knob: fewer sequences, see bench.py)
-  pre-filters candidates on the VPU for ANY mm >= 6: XOR byte-run
-  counts between sort neighbours give exact forward/backward length
-  bounds, so provably-rejectable candidates never reach the scan (see
-  cand_delta_rows); ``reject_step`` bounds the rescan density of the
-  rejects that survive.
-* The linked path sorts [window | K blocks] TILES (ENC_TILE_BLOCKS)
-  instead of per-block [window | block] rows — bit-identical deltas at
-  (K+1)/K elements per byte instead of 2x.
-
-``_hash5``/``hash_rows`` remain exported for the destSize/SG chain kernel
-(kernels/destsize_kernel.py), whose incremental cross-buffer walk still
-uses a persistent table.
+``min_match`` (the decode-speed knob: fewer sequences) pre-filters
+candidates in the sorted pass for any mm >= 6: XOR byte-run counts
+between sort neighbours give exact forward/backward length bounds, so
+provably-rejectable candidates never reach the scan; ``reject_step``
+bounds the rescan density of the rejects that survive.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .common import on_cpu
-from .emit import make_emitters
+from .common import on_cpu, triton_call
 from ..spec import compress_bound
 
-HASH_LOG = 14
-HASH_SIZE = 1 << HASH_LOG
 POS_BITS = 18          # positions < 2^18 (blocks <= 256KB in this kernel)
-POS_MASK = (1 << POS_BITS) - 1
 SKIP_TRIGGER = 6
-
 MAX_BLOCK = 1 << POS_BITS
-
-# linked-path sort tiling: blocks per sorted tile (1 = per-block
-# [window|block] rows; >1 amortizes the window duplication).  Chip sweep
-# at mm=8 on real text: K=1 47.4, 2 46.1, 4 46.0, 5 52.6, 6 53.3,
-# 7 53.1 MB/s — the dip below 5 is an XLA sort shape effect, not
-# tiling math; 6 is the measured knee (docs/SOL.md).
-ENC_TILE_BLOCKS = int(os.environ.get("LZ4TPU_ENC_TILE", "6"))
-# cand_delta_rows packs positions into POS_BITS+1-bit fields, so a sorted
-# tile may not exceed 2^19 lanes: WINDOW (64KB) + K*64KB <= 1<<19 => K<=7.
-if not 1 <= ENC_TILE_BLOCKS <= 7:
-    raise ValueError(
-        f"LZ4TPU_ENC_TILE={ENC_TILE_BLOCKS} out of range: tile width "
-        "window+K*64KB must stay within the kernel's 2^19-lane position "
-        "packing, so K must be in 1..7")
+WINDOW = 65536
+COPY = 32              # bytes per masked vector copy (one per thread)
+NUM_WARPS = 1
 
 
 @functools.partial(jax.jit, static_argnames=("row_bytes",))
 def bytes_to_val32_rows(packed_words: jax.Array, row_bytes: int) -> jax.Array:
     """[B, W] int32 packed LE words -> [B, row_bytes] int32 where lane p is
-    the LE32 read at byte offset p (4-byte lookahead packed per lane).
-
-    Pure vector work: unpack bytes then recombine with shifts of rolled
-    lanes (jnp.roll on the minor axis).
-    """
+    the LE32 read at byte offset p (4-byte lookahead packed per lane; the
+    last 3 lanes wrap to the row start)."""
     w = packed_words.astype(jnp.int32)
     b0 = w & 0xFF
     b1 = (w >> 8) & 0xFF
@@ -110,21 +76,6 @@ def bytes_to_val32_rows(packed_words: jax.Array, row_bytes: int) -> jax.Array:
     return v
 
 
-def _hash5(v32, b4):
-    """Hash of 5 bytes (role of lz4.c:462-468) — used by the destSize/SG
-    chain kernel's persistent table."""
-    x = (v32 ^ (b4 * jnp.int32(-1640531535))) * jnp.int32(-1640531535)
-    return (x >> (32 - HASH_LOG)) & (HASH_SIZE - 1)
-
-
-@jax.jit
-def hash_rows(val: jax.Array) -> jax.Array:
-    """Vectorized per-position _hash5 over val32 rows (VPU)."""
-    b4 = jnp.roll(val, -4, axis=-1) & 0xFF
-    x = (val ^ (b4 * jnp.int32(-1640531535))) * jnp.int32(-1640531535)
-    return (x >> (32 - HASH_LOG)) & (HASH_SIZE - 1)
-
-
 @jax.jit
 def cand_delta_rows(val: jax.Array, filter_mm=None) -> jax.Array:
     """[B, N] val32 rows -> [B, N] int32 candidate deltas: lane p holds
@@ -132,31 +83,27 @@ def cand_delta_rows(val: jax.Array, filter_mm=None) -> jax.Array:
     65535-byte match window, or 0 when none exists.
 
     Two lax.sorts per row: sorting (val32, b5<<18|pos) groups equal
-    5-byte sequences adjacently — the nearest previous occurrence is the
-    sort predecessor — then sorting (pos, delta) un-permutes.  This is
-    the TPU-native replacement for the reference's scalar hash table
-    (lz4.c:454-477, 598-612): exact — no hash collisions — and computed
-    at VPU rates.  The key is 5 bytes like the reference's 64-bit build
-    (lz4.c:462-468): a 4-byte key finds nearest-but-weak candidates
-    (common 4-grams are everywhere) and was measured 4-10% worse on
-    ratio; 5 bytes biases candidates toward longer matches.
+    5-byte sequences adjacently -- the nearest previous occurrence is the
+    sort predecessor -- then sorting (pos, delta) un-permutes.  This
+    replaces the reference's scalar hash table (lz4.c:454-477, 598-612):
+    exact -- no hash collisions.  The key is 5 bytes like the reference's
+    64-bit build (lz4.c:462-468): a 4-byte key finds nearest-but-weak
+    candidates (common 4-grams are everywhere) and was measured 4-10%
+    worse on ratio; 5 bytes biases candidates toward longer matches.
 
     ``filter_mm`` (optional [B] int32 per-row min_match): rows with
-    mm >= 6 get a NECESSARY-condition pre-filter applied HERE, on the
-    VPU, instead of in the scalar scan.  The sort carries val32@+4 and
+    mm >= 6 get a NECESSARY-condition pre-filter applied here, in the
+    sorted pass, instead of in the scan.  The sort carries val32@+4 and
     val32@-4 as passenger operands; XOR byte-run counts between the
     neighbour pair give the EXACT forward match length up to 8 (bytes
     0..4 equal by the 5-byte key; bytes 5..7 tested individually) and
-    the EXACT backward run up to 4 — so a candidate is zeroed precisely
-    when fwd < 8 AND bwd < 4 AND fwd + bwd < mm, which the scalar scan
-    would provably reject anyway.  The scan's rejected-candidate
-    extension walks disappear, and the barren-jump table (built from
-    the filtered deltas) jumps the whole rejected region.  Survivors
-    still get the exact ``ml >= min_match`` test in-kernel.  (The
-    wrapped-lane compares at row edges are heuristic in exactly the way
-    the in-kernel clamped loads were — necessary-only either way; a
-    false byte EQUALITY at a wrapped lane only keeps a candidate, and
-    positions near the row end never start matches.)
+    the EXACT backward run up to 4 -- so a candidate is zeroed precisely
+    when fwd < 8 AND bwd < 4 AND fwd + bwd < mm, which the scan would
+    provably reject anyway.  Survivors still get the exact
+    ``ml >= min_match`` test in the scan.  (The wrapped-lane compares at
+    row edges are heuristic: necessary-only either way; a false byte
+    EQUALITY at a wrapped lane only keeps a candidate, and positions near
+    the row end never start matches.)
     """
     B, N = val.shape
     assert N <= (1 << 19)
@@ -207,6 +154,15 @@ def cand_delta_rows(val: jax.Array, filter_mm=None) -> jax.Array:
     return dd
 
 
+def _next_candidate(d: jax.Array) -> jax.Array:
+    """[R, N] candidate deltas -> [R, N] position of the next lane
+    (>= itself) holding a candidate, N when none."""
+    N = d.shape[1]
+    pos = jnp.arange(N, dtype=jnp.int32)[None, :]
+    cand = jnp.where(d > 0, pos, N)
+    return jnp.flip(lax.cummin(jnp.flip(cand, axis=1), axis=1), axis=1)
+
+
 @jax.jit
 def _jump_rows(d: jax.Array) -> jax.Array:
     """[R, N] candidate deltas -> [R, N] int32 distance from each lane to
@@ -217,195 +173,251 @@ def _jump_rows(d: jax.Array) -> jax.Array:
     a barren position and its next candidate can produce neither a match
     nor a probe, so jumping them never skips a candidate; probe density
     is equal or better (fewer visits grow the accel step more slowly, so
-    the parse can differ from the unjumped scan — ratio-neutral-or-better,
+    the parse can differ from the unjumped scan -- ratio-neutral-or-better,
     not byte-identical).  The reference's skip trigger (lz4.c:586-594)
     gambles geometrically on barren runs; the sorted pass has already
     measured them."""
-    R, N = d.shape
-    pos = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32), (R, N))
-    cand = jnp.where(d > 0, pos, N)
-    nextc = jnp.flip(lax.cummin(jnp.flip(cand, axis=1), axis=1), axis=1)
-    return jnp.minimum(nextc - pos, 65535)
+    pos = jnp.arange(d.shape[1], dtype=jnp.int32)[None, :]
+    return jnp.minimum(_next_candidate(d) - pos, 65535)
 
 
-def _make_encode_kernel(NS: int, M: int, acceleration: int,
-                        min_match: int = 4, reject_step: int = 1):
-    def kernel(slen_ref, val_hbm, d_hbm, out_hbm, olen_ref,
-               vsmem, dsmem, osmem, sem_in, sem_d, sem_out):
+@jax.jit
+def cand_frac8_rows(val: jax.Array) -> jax.Array:
+    """[B, N] val32 rows -> [B] float32: fraction of positions whose
+    nearest previous 5-byte-equal candidate also matches 8 forward bytes
+    (i.e. would survive a min_match pre-filter) -- a one-sort statistic
+    of long-match density used to pick a per-block min_match (adaptive
+    mode).  Rides the same sort as ``cand_delta_rows`` with val32@+4
+    carried as a passenger operand, so no gather is needed to compare
+    candidate bytes."""
+    B, N = val.shape
+    pos = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32), (B, N))
+    b5 = jnp.roll(val, -4, axis=-1) & 0xFF
+    v4 = jnp.roll(val, -4, axis=-1)
+    k2 = (b5 << 18) | pos
+    sk, sk2, sv4 = lax.sort((val, k2, v4), dimension=1, num_keys=2)
+    sp = sk2 & ((1 << 18) - 1)
+    same = jnp.logical_and(sk[:, 1:] == sk[:, :-1],
+                           (sk2 >> 18)[:, 1:] == (sk2 >> 18)[:, :-1])
+    near = (sp[:, 1:] - sp[:, :-1]) <= 65535
+    m8 = jnp.logical_and(jnp.logical_and(same, near),
+                         sv4[:, 1:] == sv4[:, :-1])
+    return jnp.mean(m8.astype(jnp.float32), axis=1)
+
+
+# ---------------------------------------------------------------------------
+# the scan kernel
+# ---------------------------------------------------------------------------
+
+def _scan_kernel(NS: int, linked: bool, reject_step: int):
+    """One program per block.  Independent rows: val [NS], cand [NS] =
+    delta | jump << 16, block at lane 0.  Linked rows: val [WINDOW + NS]
+    with the block at lane WINDOW, cand [NS] = delta, jump [NS // 4] =
+    block-relative next-candidate position at lane 4k."""
+    start = WINDOW if linked else 0
+
+    def kernel(meta, val, cand, *rest):
+        if linked:
+            jump, out, olen = rest
+        else:
+            out, olen = rest
         b = pl.program_id(0)
-        n = slen_ref[b]
+        n = meta[b, 0]
+        prefix = meta[b, 1]             # readable bytes before the block
+        mm = meta[b, 2]
+        reset = meta[b, 3]              # skip counter after a match
+        lanes = lax.iota(jnp.int32, COPY)
 
-        cp_in = pltpu.make_async_copy(val_hbm.at[b], vsmem.at[:, 0:NS],
-                                      sem_in)
-        cp_in.start()
-        cp_d = pltpu.make_async_copy(d_hbm.at[b], dsmem.at[:, 0:NS],
-                                     sem_d)
-        cp_d.start()
-        cp_in.wait()
-        cp_d.wait()
-
-        def val(p):
-            return vsmem[0, p]
+        def word(p):
+            return val[p]
 
         def byte(p):
-            return vsmem[0, p] & 0xFF
+            return val[p] & 0xFF
 
-        def delta(p):
-            return dsmem[0, p]
+        def put(op, x):
+            out[op] = x.astype(jnp.uint8)
 
-        copy_lit4, emit_ext, emit_seq, _emit_final = \
-            make_emitters(val, osmem)
+        def put_run(op, e):
+            """Length extension: e // 255 bytes of 255, then e % 255."""
+            k = e // 255
 
-        mflimit = n - 12      # last position a match may start (inclusive)
-        matchlimit = n - 5    # matches may extend up to here (exclusive)
+            def body(j, carry):
+                off = j * COPY + lanes
+                plgpu.store(out.at[op + off],
+                            jnp.full((COPY,), 255, jnp.uint8), mask=off < k)
+                return carry
+
+            lax.fori_loop(0, (k + COPY - 1) // COPY, body, 0)
+            put(op + k, e - 255 * k)
+            return op + k + 1
+
+        def put_literals(op, src, count):
+            def body(j, carry):
+                off = j * COPY + lanes
+                m = off < count
+                v = plgpu.load(val.at[src + off], mask=m, other=0)
+                plgpu.store(out.at[op + off], (v & 0xFF).astype(jnp.uint8),
+                            mask=m)
+                return carry
+
+            lax.fori_loop(0, (count + COPY - 1) // COPY, body, 0)
+            return op + count
+
+        def put_sequence(op, anchor, litlen, offset, ml_code):
+            """Token, literal run, LE16 offset, match-length extension."""
+            put(op, (jnp.minimum(litlen, 15) << 4) | jnp.minimum(ml_code, 15))
+            op = lax.cond(litlen >= 15, lambda o: put_run(o, litlen - 15),
+                          lambda o: o, op + 1)
+            op = put_literals(op, anchor, litlen)
+            put(op, offset & 0xFF)
+            put(op + 1, offset >> 8)
+            return lax.cond(ml_code >= 15,
+                            lambda o: put_run(o, ml_code - 15),
+                            lambda o: o, op + 2)
+
+        def put_last(op, anchor, litlen):
+            """Trailing literal-only sequence."""
+            put(op, jnp.minimum(litlen, 15) << 4)
+            op = lax.cond(litlen >= 15, lambda o: put_run(o, litlen - 15),
+                          lambda o: o, op + 1)
+            return put_literals(op, anchor, litlen)
+
+        n_end = start + n
+        mflimit = n_end - 12      # last position a match may start
+        matchlimit = n_end - 5    # matches may extend up to here (excl.)
+        low = start - prefix      # lowest readable position
 
         def with_match(ip, op, anchor, scnt, q):
             # backward extension (catch-up, lz4.c:635)
             def bcond(c):
                 mp, qq = c
                 return jnp.logical_and(
-                    jnp.logical_and(mp > anchor, qq > 0),
+                    jnp.logical_and(mp > anchor, qq > low),
                     byte(mp - 1) == byte(qq - 1))
 
-            def bbody(c):
-                mp, qq = c
-                return mp - 1, qq - 1
+            mp, q2 = lax.while_loop(bcond, lambda c: (c[0] - 1, c[1] - 1),
+                                    (ip, q))
 
-            mp, q2 = lax.while_loop(bcond, bbody, (ip, q))
-
-            # forward extension: stride-4 val32 equality...
+            # forward extension, 8 bytes per step...
             def f8cond(ml):
-                # stride-8: two val32 equality tests per iteration — the
-                # scan's cost is while-loop iteration count (docs/SOL.md)
                 return jnp.logical_and(
                     mp + ml + 8 <= matchlimit,
-                    jnp.logical_and(val(q2 + ml) == val(mp + ml),
-                                    val(q2 + ml + 4) == val(mp + ml + 4)))
+                    jnp.logical_and(word(q2 + ml) == word(mp + ml),
+                                    word(q2 + ml + 4) == word(mp + ml + 4)))
 
             ml = lax.while_loop(f8cond, lambda ml: ml + 8, ip + 4 - mp)
             step4 = jnp.logical_and(mp + ml + 4 <= matchlimit,
-                                    val(q2 + ml) == val(mp + ml))
-            ml = ml + jnp.where(step4, 4, 0)
-            # ...then a branchless <4-byte tail from the XOR of the first
+                                    word(q2 + ml) == word(mp + ml))
+            ml = ml + 4 * step4.astype(jnp.int32)
+            # ...then the <4-byte tail from the XOR of the first
             # mismatching words (diff==0 means limit-stopped: tail=3 and
-            # the min() clamp does the bounding), lz4.c LZ4_count's role
-            diff = val(q2 + ml) ^ val(mp + ml)
-            tail = (jnp.where((diff & 0xFF) == 0, 1, 0)
-                    + jnp.where((diff & 0xFFFF) == 0, 1, 0)
-                    + jnp.where((diff & 0xFFFFFF) == 0, 1, 0))
+            # the min() clamp bounds it), lz4.c LZ4_count's role
+            diff = word(q2 + ml) ^ word(mp + ml)
+            tail = (((diff & 0xFF) == 0).astype(jnp.int32)
+                    + ((diff & 0xFFFF) == 0).astype(jnp.int32)
+                    + ((diff & 0xFFFFFF) == 0).astype(jnp.int32))
             ml = jnp.minimum(ml + tail, matchlimit - mp)
 
-            def emit(ip, op, anchor, scnt):
-                op2 = emit_seq(op, anchor, mp - anchor, ip - q, ml - 4)
-                new_ip = mp + ml
-                return (new_ip, op2, new_ip,
-                        jnp.int32(acceleration << SKIP_TRIGGER))
+            def emit():
+                op2 = put_sequence(op, anchor, mp - anchor, ip - q, ml - 4)
+                return mp + ml, op2, mp + ml, reset
 
-            if min_match <= 4:
-                return emit(ip, op, anchor, scnt)
-            # min-match knob: short matches stay literal (fewer sequences
-            # = proportionally faster per-chip decode; the decoder is
-            # sequence-bound).  ml includes the backward extension, which
-            # funds a large share of accepted matches; on reject the scan
-            # advances by at most reject_step (keeping probe density:
-            # jumping the whole rejected region was measured to cost 20%+
-            # ratio — long matches are FOUND by dense probing, and the
-            # measured ratio cost of step 2-4 is <1.5%).
-            return lax.cond(ml >= min_match,
-                            lambda: emit(ip, op, anchor, scnt),
-                            lambda: (ip + jnp.maximum(scnt >> SKIP_TRIGGER,
-                                                      reject_step),
-                                     op, anchor, scnt + 1))
+            # min-match knob: short matches stay literal; on reject the
+            # scan advances by at most reject_step (dense probing finds
+            # the long matches)
+            return lax.cond(
+                ml >= mm, emit,
+                lambda: (ip + jnp.maximum(scnt >> SKIP_TRIGGER, reject_step),
+                         op, anchor, scnt + 1))
 
-        def main_body(state):
+        def skip(ip, op, anchor, scnt):
+            step = scnt >> SKIP_TRIGGER
+            if linked:
+                # 4-granular next-candidate table: jump[j >> 2] is a lower
+                # bound on the next candidate at or after any landing j,
+                # so max(ip2, snap) never skips one
+                ip2 = ip + step
+                j = ip2 - start
+                snap = start + jump[jnp.minimum(j >> 2, NS // 4 - 1)]
+                ip2 = jnp.where(j < NS, jnp.maximum(ip2, snap), ip2)
+            else:
+                ip2 = ip + jnp.maximum(step, (cand[ip] >> 16) & 0xFFFF)
+            return ip2, op, anchor, scnt + 1
+
+        def body(state):
             ip, op, anchor, scnt = state
-            w = delta(ip)
-            d = w & 0xFFFF
+            d = cand[ip - start] & 0xFFFF
             q = ip - d
-            # d > 0 <=> a previous equal val32 within 65535 bytes exists;
-            # no validation load — the candidate is exact by construction,
-            # and in min_match>=11 mode the VPU sorted pass already zeroed
-            # candidates failing the necessary-condition pre-filter
-            # (cand_delta_rows filter_rows), so the scan pays nothing.
-            # High 16 bits: distance to the next candidate (_jump_rows) —
-            # a barren position jumps the whole candidate-free run.
-            good = d > 0
-
-            def skip():
-                step = jnp.maximum(scnt >> SKIP_TRIGGER,
-                                   (w >> 16) & 0xFFFF)
-                return ip + step, op, anchor, scnt + 1
-
+            # q >= low guards a partial prefix's zero padding: its val32
+            # lanes equal real zero runs, so matches must not reach them
+            good = jnp.logical_and(d > 0, q >= low)
             return lax.cond(good,
                             lambda: with_match(ip, op, anchor, scnt, q),
-                            skip)
+                            lambda: skip(ip, op, anchor, scnt))
 
-        def main_cond(state):
-            ip, op, anchor, scnt = state
-            return ip <= mflimit
-
-        init = (jnp.int32(1), jnp.int32(0), jnp.int32(0),
-                jnp.int32(acceleration << SKIP_TRIGGER))
+        # a block with any window may match from its first byte; only a
+        # windowless start skips position 0
+        init = (start + (prefix <= 0).astype(jnp.int32),
+                jnp.int32(0), jnp.int32(start), reset)
         run = n >= 13
-        ip, op, anchor, _ = lax.while_loop(
-            lambda s: jnp.logical_and(run, main_cond(s)), main_body, init)
-
-        op = _emit_final(op, anchor, n)
-        olen_ref[b] = op
-
-        cp_out = pltpu.make_async_copy(osmem.at[:, 0:M], out_hbm.at[b],
-                                       sem_out)
-        cp_out.start()
-        cp_out.wait()
+        _, op, anchor, _ = lax.while_loop(
+            lambda s: jnp.logical_and(run, s[0] <= mflimit), body, init)
+        op = put_last(op, anchor, n_end - anchor)
+        olen[b] = jnp.where(n > 0, op, 0) if linked else op
 
     return kernel
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("NS", "M", "acceleration", "interpret",
-                                    "min_match", "reject_step"))
-def _encode_blocks(val_rows, slen, *, NS, M, acceleration, interpret,
-                   min_match=4, reject_step=1):
+def _scan_meta(slen, prefix, mm, acceleration):
+    """Per-block scan parameters: length, readable bytes before the
+    block, min_match and the skip counter's reset value."""
+    return jnp.stack([slen, prefix, mm,
+                      jnp.full_like(slen, acceleration << SKIP_TRIGGER)],
+                     axis=1)
+
+
+@functools.partial(jax.jit, static_argnames=("linked", "reject_step",
+                                              "interpret"))
+def _scan(meta, val, cand, jump, *, linked, reject_step, interpret):
+    B, W = val.shape
+    NS = cand.shape[1]
+    M = -(-compress_bound(NS) // 128) * 128
+    args = [meta, val, cand]
+    in_specs = [pl.BlockSpec((B, 4), lambda b: (0, 0)),
+                pl.BlockSpec((None, W), lambda b: (b, 0)),
+                pl.BlockSpec((None, NS), lambda b: (b, 0))]
+    if linked:
+        args.append(jump)
+        in_specs.append(pl.BlockSpec((None, NS // 4), lambda b: (b, 0)))
+    out, olen = triton_call(
+        _scan_kernel(NS, linked, reject_step),
+        num_warps=NUM_WARPS, interpret=interpret,
+        grid=(B,),
+        in_specs=in_specs,
+        out_specs=(pl.BlockSpec((None, M), lambda b: (b, 0)),
+                   pl.BlockSpec((B,), lambda b: (0,))),
+        out_shape=(jax.ShapeDtypeStruct((B, M), jnp.uint8),
+                   jax.ShapeDtypeStruct((B,), jnp.int32)),
+    )(*args)
+    return out.astype(jnp.int32), olen
+
+
+@functools.partial(jax.jit, static_argnames=("acceleration", "interpret",
+                                              "min_match", "reject_step"))
+def _encode_blocks(val_rows, slen, *, acceleration, interpret, min_match,
+                   reject_step):
     B = val_rows.shape[0]
-    prefiltered = min_match >= 6     # below 6 the filter keeps everything
     d_rows = cand_delta_rows(
         val_rows,
-        jnp.full((B,), min_match, jnp.int32) if prefiltered else None)
-    # barren-jump distances ride the spare high 16 bits (deltas <= 65535).
-    # jump = 65535 intentionally wraps into the int32 sign bit; the kernel
-    # recovers it as (w >> 16) & 0xFFFF (arithmetic shift then mask), so
-    # the two's-complement wrap is part of the contract — keep the
-    # extraction in sync if the packing ever changes.
-    d_rows = d_rows | (_jump_rows(d_rows) << 16)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=(
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((1, NS + 24), jnp.int32),
-            pltpu.SMEM((1, NS + 24), jnp.int32),
-            pltpu.SMEM((1, M + 24), jnp.int32),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    out, olen = pl.pallas_call(
-        _make_encode_kernel(NS, M, acceleration, min_match, reject_step),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((B, 1, M), jnp.int32),
-            jax.ShapeDtypeStruct((B,), jnp.int32),
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(slen, val_rows.reshape(B, 1, NS), d_rows.reshape(B, 1, NS))
-    return out.reshape(B, M), olen
+        jnp.full((B,), min_match, jnp.int32) if min_match >= 6 else None)
+    # barren-jump distances ride the spare high 16 bits (deltas <= 65535);
+    # jump = 65535 wraps into the sign bit and the scan recovers it as
+    # (w >> 16) & 0xFFFF
+    cand = d_rows | (_jump_rows(d_rows) << 16)
+    meta = _scan_meta(slen, jnp.zeros((B,), jnp.int32),
+                      jnp.full((B,), min_match, jnp.int32), acceleration)
+    return _scan(meta, val_rows, cand, None, linked=False,
+                 reject_step=reject_step, interpret=interpret)
 
 
 def encode_blocks(val32_rows: jax.Array, src_lens: jax.Array,
@@ -430,331 +442,41 @@ def encode_blocks(val32_rows: jax.Array, src_lens: jax.Array,
         raise ValueError("NS must be a multiple of 128")
     if NS > MAX_BLOCK:
         raise ValueError(f"block too large for kernel ({NS} > {MAX_BLOCK})")
-    M = -(-compress_bound(NS) // 128) * 128
     return _encode_blocks(val32_rows, src_lens.astype(jnp.int32),
-                          NS=NS, M=M, acceleration=int(acceleration),
+                          acceleration=int(acceleration),
                           interpret=on_cpu(), min_match=int(min_match),
                           reject_step=int(reject_step))
 
 
-# ---------------------------------------------------------------------------
-# linked / streaming mode: LZ4_compress_fast_continue parity on device
-# ---------------------------------------------------------------------------
-
-WINDOW = 65536
-
-
-@jax.jit
-def cand_frac8_rows(val: jax.Array) -> jax.Array:
-    """[B, N] val32 rows -> [B] float32: fraction of positions whose
-    nearest previous 5-byte-equal candidate also matches 8 forward bytes
-    (i.e. would survive a min_match pre-filter) — a one-sort VPU
-    statistic of long-match density used to pick a per-block min_match
-    (adaptive mode).  Rides the same sort as ``cand_delta_rows`` with
-    val32@+4 carried as a passenger operand, so no gather is needed to
-    compare candidate bytes."""
-    B, N = val.shape
-    pos = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32), (B, N))
-    b5 = jnp.roll(val, -4, axis=-1) & 0xFF
-    v4 = jnp.roll(val, -4, axis=-1)
-    k2 = (b5 << 18) | pos
-    sk, sk2, sv4 = lax.sort((val, k2, v4), dimension=1, num_keys=2)
-    sp = sk2 & ((1 << 18) - 1)
-    same = jnp.logical_and(sk[:, 1:] == sk[:, :-1],
-                           (sk2 >> 18)[:, 1:] == (sk2 >> 18)[:, :-1])
-    near = (sp[:, 1:] - sp[:, :-1]) <= 65535
-    m8 = jnp.logical_and(jnp.logical_and(same, near),
-                         sv4[:, 1:] == sv4[:, :-1])
-    return jnp.mean(m8.astype(jnp.float32), axis=1)
-
-
-def _make_encode_linked_kernel(NS: int, M: int, acceleration: int,
-                               min_match: int = 4, reject_step: int = 1,
-                               dynamic_mm: bool = False):
-    """Chained-block encoder: grid (streams, blocks); each grid step's
-    SMEM val window covers [prev block | current block] and the sorted-
-    candidate pass runs over the whole window, so matches reach into the
-    previous block exactly like ``LZ4_compress_fast_continue`` prefix
-    mode (lz4.c:990-1045).
-
-    A stream may start with a pre-existing 64 KB dictionary prefix
-    (prefix_ref[s] > 0): block 0's window rows hold it, and candidate
-    deltas pointing into it come straight from the sorted pass (the
-    LZ4_loadDict table-seeding of lz4.c:944-948 has no analog to run —
-    the prefix bytes ARE in the candidate domain).  This is what lets
-    ONE huge linked frame be encoded data-parallel across a mesh with
-    full window ratio and zero communication: each shard's prefix is
-    simply the preceding 64 KB of input, which the host replicates into
-    the shard's rows.
-
-    Candidate deltas for the NS block lanes ride packed two per int32
-    (16-bit halves — deltas are <= 65535): the window vals + output row
-    leave no SMEM room for an unpacked row (chip cap is 1MB).
-
-    ``dynamic_mm``: min_match comes per block from a third prefetch
-    scalar row instead of the compile-time constant (adaptive mode: each
-    block trades ratio for decode speed according to its own long-match
-    density; see ``cand_frac8_rows``).
-    """
-    W = WINDOW + NS    # SMEM byte window per step
-
-    def kernel(slen_ref, prefix_ref, *rest):
-        if dynamic_mm:
-            (mm_ref, val_hbm, d_hbm, j_hbm, out_hbm, olen_ref,
-             vsmem, dsmem, jsmem, osmem,
-             sem_in, sem_d, sem_j, sem_out) = rest
-        else:
-            (val_hbm, d_hbm, j_hbm, out_hbm, olen_ref,
-             vsmem, dsmem, jsmem, osmem,
-             sem_in, sem_d, sem_j, sem_out) = rest
-        s = pl.program_id(0)
-        k = pl.program_id(1)
-        nb = pl.num_programs(1)
-        n = slen_ref[s * nb + k]
-        mm_b = mm_ref[s * nb + k] if dynamic_mm else jnp.int32(min_match)
-
-        cp_in = pltpu.make_async_copy(val_hbm.at[s, k], vsmem.at[:, 0:W],
-                                      sem_in)
-        cp_in.start()
-        cp_d = pltpu.make_async_copy(d_hbm.at[s, k],
-                                     dsmem.at[:, 0:NS // 2], sem_d)
-        cp_d.start()
-        cp_j = pltpu.make_async_copy(j_hbm.at[s, k],
-                                     jsmem.at[:, 0:NS // 4], sem_j)
-        cp_j.start()
-        cp_in.wait()
-        cp_d.wait()
-        cp_j.wait()
-
-        start = k * WINDOW              # global position of block start
-        base = start - WINDOW           # global position of SMEM lane 0
-        prefix = jnp.where(k == 0, prefix_ref[s], WINDOW)
-
-        def val(p):
-            return vsmem[0, p - base]
-
-        def byte(p):
-            return vsmem[0, p - base] & 0xFF
-
-        def delta(p):
-            j = p - start
-            return (dsmem[0, j >> 1] >> ((j & 1) << 4)) & 0xFFFF
-
-        copy_lit4, emit_ext, emit_seq, _emit_final = \
-            make_emitters(val, osmem)
-
-        n_end = start + n           # global end of this block
-        mflimit = n_end - 12
-        matchlimit = n_end - 5
-        low = start - prefix        # lowest readable global position
-
-        def with_match(ip, op, anchor, scnt, q):
-            def bcond(c):
-                mp, qq = c
-                return jnp.logical_and(
-                    jnp.logical_and(mp > anchor, qq > low),
-                    byte(mp - 1) == byte(qq - 1))
-
-            def bbody(c):
-                mp, qq = c
-                return mp - 1, qq - 1
-
-            mp, q2 = lax.while_loop(bcond, bbody, (ip, q))
-
-            def f8cond(ml):
-                # stride-8: two val32 equality tests per iteration — the
-                # scan's cost is while-loop iteration count (docs/SOL.md)
-                return jnp.logical_and(
-                    mp + ml + 8 <= matchlimit,
-                    jnp.logical_and(val(q2 + ml) == val(mp + ml),
-                                    val(q2 + ml + 4) == val(mp + ml + 4)))
-
-            ml = lax.while_loop(f8cond, lambda ml: ml + 8, ip + 4 - mp)
-            step4 = jnp.logical_and(mp + ml + 4 <= matchlimit,
-                                    val(q2 + ml) == val(mp + ml))
-            ml = ml + jnp.where(step4, 4, 0)
-            diff = val(q2 + ml) ^ val(mp + ml)
-            tail = (jnp.where((diff & 0xFF) == 0, 1, 0)
-                    + jnp.where((diff & 0xFFFF) == 0, 1, 0)
-                    + jnp.where((diff & 0xFFFFFF) == 0, 1, 0))
-            ml = jnp.minimum(ml + tail, matchlimit - mp)
-
-            def emit(ip, op, anchor, scnt):
-                op2 = emit_seq(op, anchor, mp - anchor, ip - q, ml - 4)
-                new_ip = mp + ml
-                return (new_ip, op2, new_ip,
-                        jnp.int32(acceleration << SKIP_TRIGGER))
-
-            if not dynamic_mm and min_match <= 4:
-                return emit(ip, op, anchor, scnt)
-            # min-match knob: see _make_encode_kernel
-            return lax.cond(ml >= mm_b,
-                            lambda: emit(ip, op, anchor, scnt),
-                            lambda: (ip + jnp.maximum(scnt >> SKIP_TRIGGER,
-                                                      reject_step),
-                                     op, anchor, scnt + 1))
-
-        def skip(ip, op, anchor, scnt):
-            # barren-jump (see _jump_rows): jsmem[k] holds the block-
-            # relative position of the next candidate at/after lane 4k
-            # (4-granular: a full-resolution row would not fit SMEM
-            # beside the 128KB val window).  nextc is monotone, so
-            # jsmem[j>>2] = nextc[4*(j>>2)] is a valid lower bound for
-            # ANY landing j: whenever it lands at/after j there is no
-            # candidate in [j, snap), so max(ip2, snap) never skips one
-            # (unaligned landings included — no parity trap).
-            step = scnt >> SKIP_TRIGGER
-            ip2 = ip + step
-            j = ip2 - start
-            snap = start + jsmem[0, jnp.minimum(j >> 2, NS // 4 - 1)]
-            ip2 = jnp.where(j < NS, jnp.maximum(ip2, snap), ip2)
-            return ip2, op, anchor, scnt + 1
-
-        def main_body(state):
-            ip, op, anchor, scnt = state
-            d = delta(ip)
-            q = ip - d
-            # q >= low guards block 0's zero padding: a partial prefix
-            # leaves synthetic zero lanes below ``low`` whose val32
-            # equals real zero runs — matches must not reach them.
-            # (In min_match>=11 / dynamic mode the VPU sorted pass has
-            # already zeroed candidates failing the necessary-condition
-            # pre-filter — cand_delta_rows filter_rows.)
-            good = jnp.logical_and(d > 0, q >= low)
-            return lax.cond(good,
-                            lambda: with_match(ip, op, anchor, scnt, q),
-                            lambda: skip(ip, op, anchor, scnt))
-
-        def main_cond(state):
-            ip, op, anchor, scnt = state
-            return ip <= mflimit
-
-        # a block with any window may match from its first byte; only a
-        # windowless stream start must skip position 0
-        init = (start + jnp.where(prefix > 0, 0, 1).astype(jnp.int32),
-                jnp.int32(0), jnp.int32(start),
-                jnp.int32(acceleration << SKIP_TRIGGER))
-        run = n >= 13
-        ip, op, anchor, _ = lax.while_loop(
-            lambda st: jnp.logical_and(run, main_cond(st)), main_body, init)
-
-        op = _emit_final(op, anchor, n_end)
-        olen_ref[s * nb + k] = jnp.where(n > 0, op, 0)
-
-        cp_out = pltpu.make_async_copy(osmem.at[:, 0:M], out_hbm.at[s, k],
-                                       sem_out)
-        cp_out.start()
-        cp_out.wait()
-
-    return kernel
-
-
 @functools.partial(jax.jit,
-                   static_argnames=("NS", "M", "acceleration", "interpret",
-                                    "min_match", "reject_step",
-                                    "dynamic_mm"))
-def _encode_blocks_linked(val_rows, slen, prefix, mm_rows=None, *, NS, M,
-                          acceleration, interpret, min_match=4,
-                          reject_step=1, dynamic_mm=False):
-    S, NB = val_rows.shape[0], val_rows.shape[1]
-    W = WINDOW + NS
-    # candidate deltas over the whole [window | block] row — candidates
-    # reach into the previous block / dictionary prefix by construction;
-    # only the NS block lanes ship to the kernel, packed 2 per int32.
-    # The min_match>=11 pre-filter rides the same sorted pass (per-row
-    # gated in dynamic mode so static mm=K and mm_rows=[K..] stay
-    # bit-identical).
-    if dynamic_mm:
-        # per-block mm: the filter threshold varies per row, so sort the
-        # per-block [window | block] rows (filter rides per-row)
-        filter_mm = mm_rows.reshape(S * NB).astype(jnp.int32)
-        d_full = cand_delta_rows(val_rows.reshape(S * NB, W),
-                                 filter_mm)[:, WINDOW:]
+                   static_argnames=("acceleration", "interpret", "min_match",
+                                    "reject_step"))
+def _encode_blocks_linked(val_rows, slen, prefix, mm_rows, *, acceleration,
+                          interpret, min_match, reject_step):
+    S, NB, W = val_rows.shape
+    NS = W - WINDOW
+    rows = val_rows.reshape(S * NB, W)
+    # candidate deltas over each whole [window | block] row: candidates
+    # reach into the previous block / dictionary prefix by construction
+    if mm_rows is not None:
+        mm = mm_rows.reshape(S * NB).astype(jnp.int32)
+        filter_mm = mm
     else:
-        # TILE SORTS: the per-block [window | block] rows sort every byte
-        # twice; sorting [window | K blocks] tiles instead keeps the
-        # exact same candidate reach (any lane still sees <= 65535 bytes
-        # back, which never crosses more than one 64KB block boundary)
-        # at 1.25x elements per byte instead of 2x — bit-identical
-        # deltas, ~25-30% less sort work (docs/SOL.md).
-        K = min(ENC_TILE_BLOCKS, NB)
-        T = -(-NB // K)
-        vr = val_rows
-        if T * K != NB:
-            vr = jnp.pad(val_rows, ((0, 0), (0, T * K - NB), (0, 0)))
-        heads = vr[:, ::K, :WINDOW]                       # [S, T, WINDOW]
-        bodies = vr[:, :, WINDOW:]                        # [S, T*K, NS]
-        # repair every block's last 3 lanes: their val32 lookahead
-        # wrapped at the SOURCE row's edge, but mid-tile those lanes
-        # must see the next block's bytes — which the next row's window
-        # part carries with real lookahead (positions WINDOW-3..WINDOW-1
-        # are mid-row there).  The final row keeps its wrapped tail:
-        # nothing after it in any tile can link to it.
-        tails = jnp.concatenate(
-            [vr[:, 1:, WINDOW - 3:WINDOW], vr[:, -1:, W - 3:W]], axis=1)
-        bodies = jnp.concatenate([bodies[:, :, :NS - 3], tails], axis=2)
-        bodies = bodies.reshape(S, T, K * NS)
-        tiles = jnp.concatenate([heads, bodies], axis=2)
-        filter_mm = (jnp.full((S * T,), min_match, jnp.int32)
-                     if min_match >= 6 else None)
-        d_tiles = cand_delta_rows(
-            tiles.reshape(S * T, WINDOW + K * NS), filter_mm)
-        d_full = d_tiles[:, WINDOW:].reshape(
-            S, T * K, NS)[:, :NB].reshape(S * NB, NS)
-    # zero the last 12 lanes' deltas: positions past mflimit are never
-    # probed (lz4.c:539 parity — matches may not start in the last 12
-    # bytes), and the filter's wrapped-lane reads make those lanes the
-    # only place the window- and tile-sort layouts can disagree; masking
-    # them keeps the parse (and the barren-jump table) bit-identical
-    # across layouts
-    posr12 = jnp.arange(NS, dtype=jnp.int32)
-    d_full = jnp.where(posr12[None, :] < NS - 12, d_full, 0)
-    dp = d_full.reshape(S, NB, NS // 2, 2)
-    d_rows = dp[..., 0] | (dp[..., 1] << 16)
-    # barren-jump side table (4-granular; see the kernel's skip()):
-    # block-relative position of the next candidate at/after lane 4k
-    posr = jnp.arange(NS, dtype=jnp.int32)
-    cand = jnp.where(d_full > 0, posr[None, :], NS)
-    nextc = jnp.flip(lax.cummin(jnp.flip(cand, axis=1), axis=1), axis=1)
-    j_rows = nextc[:, ::4]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3 if dynamic_mm else 2,
-        grid=(S, NB),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY),
-                  pl.BlockSpec(memory_space=pl.ANY),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=(
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((1, W + 24), jnp.int32),
-            pltpu.SMEM((1, NS // 2 + 8), jnp.int32),
-            pltpu.SMEM((1, NS // 4 + 8), jnp.int32),
-            pltpu.SMEM((1, M + 24), jnp.int32),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    scalars = (slen.reshape(S * NB), prefix)
-    if dynamic_mm:
-        scalars = scalars + (mm_rows.reshape(S * NB).astype(jnp.int32),)
-    out, olen = pl.pallas_call(
-        _make_encode_linked_kernel(NS, M, acceleration, min_match,
-                                   reject_step, dynamic_mm),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((S, NB, 1, M), jnp.int32),
-            jax.ShapeDtypeStruct((S * NB,), jnp.int32),
-        ),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-    )(*scalars, val_rows.reshape(S, NB, 1, W),
-      d_rows.reshape(S, NB, 1, NS // 2),
-      j_rows.reshape(S, NB, 1, NS // 4))
-    return out.reshape(S, NB, M), olen.reshape(S, NB)
+        mm = jnp.full((S * NB,), min_match, jnp.int32)
+        filter_mm = mm if min_match >= 6 else None
+    d = cand_delta_rows(rows, filter_mm)[:, WINDOW:]
+    # positions past mflimit are never probed (lz4.c:539 parity: matches
+    # may not start in the last 12 bytes), and they are the only lanes
+    # whose val32 lookahead wrapped at the row edge
+    d = jnp.where(jnp.arange(NS)[None, :] < NS - 12, d, 0)
+    jump = _next_candidate(d)[:, ::4]
+    k = jnp.arange(S * NB) % NB
+    first = jnp.repeat(prefix.astype(jnp.int32), NB)
+    meta = _scan_meta(slen.reshape(S * NB), jnp.where(k == 0, first, WINDOW),
+                      mm, acceleration)
+    out, olen = _scan(meta, rows, d, jump, linked=True,
+                      reject_step=reject_step, interpret=interpret)
+    return out.reshape(S, NB, -1), olen.reshape(S, NB)
 
 
 def encode_blocks_linked(val32_rows: jax.Array, src_lens: jax.Array,
@@ -763,6 +485,16 @@ def encode_blocks_linked(val32_rows: jax.Array, src_lens: jax.Array,
                          min_match: int = 4, reject_step: int = 1,
                          mm_rows: jax.Array | None = None):
     """Compress streams of linked 64 KB blocks (device streaming mode).
+
+    Block (s, k)'s row holds the previous block as its window, so matches
+    reach 64 KB back exactly like ``LZ4_compress_fast_continue`` prefix
+    mode (lz4.c:990-1045).  A stream may start with a pre-existing 64 KB
+    dictionary prefix (prefix_lens[s] > 0): block 0's window lanes hold
+    it and candidates pointing into it come straight from the sorted pass
+    (the LZ4_loadDict table seeding of lz4.c:944-948 has no analog to
+    run).  This is what lets ONE huge linked frame be encoded
+    data-parallel with full window ratio and no communication: each
+    shard's prefix is the preceding 64 KB of input.
 
     Args:
       val32_rows: [S, NB, 65536 + NS] int32 val32 lanes; row (s, k) covers
@@ -780,16 +512,13 @@ def encode_blocks_linked(val32_rows: jax.Array, src_lens: jax.Array,
     Returns (out [S, NB, M] int32 bytes, olen [S, NB]).
     """
     S, NB, W = val32_rows.shape
-    NS = W - WINDOW
-    if NS != WINDOW:
+    if W - WINDOW != WINDOW:
         raise ValueError("linked kernel uses 64KB blocks")
     if prefix_lens is None:
         prefix_lens = jnp.zeros((S,), jnp.int32)
-    M = -(-compress_bound(NS) // 128) * 128
     return _encode_blocks_linked(val32_rows, src_lens.astype(jnp.int32),
-                                 prefix_lens.astype(jnp.int32), mm_rows,
-                                 NS=NS, M=M, acceleration=int(acceleration),
+                                 prefix_lens, mm_rows,
+                                 acceleration=int(acceleration),
                                  interpret=on_cpu(),
                                  min_match=int(min_match),
-                                 reject_step=int(reject_step),
-                                 dynamic_mm=mm_rows is not None)
+                                 reject_step=int(reject_step))

@@ -3,12 +3,13 @@
 The parallelism model (SURVEY 2.5): frames and independent blocks are
 embarrassingly parallel with variable-length outputs.  Batches of blocks
 are sharded over a 1-D mesh with ``shard_map``; each device runs the
-Pallas kernels on its shard; compressed lengths travel with the rows so
-the host (or an all_gather) can assemble frames in order.  Dictionaries
-are replicated (broadcast over ICI by GSPMD).
+kernels on its shard; compressed lengths travel with the rows so the
+host (or an all_gather) can assemble frames in order.  Dictionaries are
+replicated.  The cards of one host reach each other all to all, so the
+mesh is 1-D and follows the data alone.
 
 The reference has no distribution layer at all (its multi-core story is
-8 independent processes, README.md:39-45); this module is the TPU-native
+8 independent processes, README.md:39-45); this module is the device
 replacement.
 """
 
@@ -30,7 +31,7 @@ AXIS = "blocks"
 
 
 def default_mesh(n_devices: Optional[int] = None) -> Mesh:
-    """1-D mesh over available devices (ICI-contiguous order)."""
+    """1-D mesh over the first ``n_devices`` devices."""
     devs = jax.devices()
     n = n_devices or len(devs)
     return Mesh(np.array(devs[:n]), (AXIS,))
@@ -139,111 +140,11 @@ def encode_linked_sharded(mesh: Mesh, val_rows: jax.Array, lens: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# scatter-gather lists over the mesh — the TPU-native analog of the
-# reference's multi-core SG story (8 independent OS processes running
-# LZ4_SG_compress, README.md:39-45): L independent iovec lists, one
-# chain kernel per list, lists sharded over the mesh axis.
+# scatter-gather lists over the mesh -- the device analog of the
+# reference's multi-core SG story (8 independent OS processes,
+# README.md:39-45): L independent frames, one chain decode per frame,
+# frames sharded over the mesh axis.
 # ---------------------------------------------------------------------------
-
-def sg_compress_mesh(mesh: Mesh, lists, out_caps, acceleration: int = 1):
-    """Compress many independent SG lists data-parallel over the mesh.
-
-    RAGGED layouts are supported (round-4): lists are BUCKETED by their
-    (buffer-length layout, caps) signature and each bucket runs the
-    device chain kernel over the mesh — one compiled kernel per distinct
-    layout, no host fallback.  ``out_caps`` may be one shared cap list
-    or a per-list list of cap lists.
-
-    Each device walks its lists sequentially (lax.map) with the whole
-    buffer-pair walk on device; the host then replays each list's
-    per-step results into the wire-exact SG walk (headers, zero-pads,
-    endmark — sg.sg_compress bookkeeping).
-
-    Returns a list of (total_out, consumed, out_bufs) per input list.
-    """
-    if not lists:
-        return []
-    if out_caps and isinstance(out_caps[0], (list, tuple)):
-        caps_per = [list(map(int, c)) for c in out_caps]
-        if len(caps_per) != len(lists):
-            raise ValueError("per-list out_caps must match lists")
-    else:
-        caps_per = [list(map(int, out_caps))] * len(lists)
-    buckets: dict = {}
-    for i, (lst, caps) in enumerate(zip(lists, caps_per)):
-        key = (tuple(len(b) for b in lst), tuple(caps))
-        buckets.setdefault(key, []).append(i)
-    results: list = [None] * len(lists)
-    for (_, caps_key), idxs in buckets.items():
-        sub = _sg_compress_mesh_uniform(
-            mesh, [lists[i] for i in idxs], list(caps_key), acceleration)
-        for i, r in zip(idxs, sub):
-            results[i] = r
-    return results
-
-
-def _sg_compress_mesh_uniform(mesh: Mesh, lists, out_caps,
-                              acceleration: int = 1):
-    """One shared-layout bucket of sg_compress_mesh."""
-    from .. import sg as sg_mod
-    from ..kernels.common import on_cpu
-    from ..kernels.destsize_kernel import _sg_encode_chain, sg_chain_statics
-    from ..tpu import fetch_byte_rows
-
-    caps = [int(c) for c in out_caps]
-    layout = tuple(len(b) for b in lists[0])
-    max_dest = sum(caps)
-
-    vals0, in_ends, total = sg_mod.sg_chain_vals(lists[0])
-    if total == 0 or total > (1 << 28):
-        raise ValueError("list layout outside the chain kernel envelope")
-    stacked = [vals0] + [sg_mod.sg_chain_vals(lst)[0] for lst in lists[1:]]
-    L = len(lists)
-    D = mesh.shape[AXIS]
-    Lp = -(-L // D) * D
-    stacked += [vals0] * (Lp - L)          # padding lists: results dropped
-    vals = jnp.stack(stacked)
-    T, M = sg_chain_statics(total, len(layout), len(caps))
-    in_ends_j = jnp.asarray(in_ends, jnp.int32)
-    caps_j = jnp.asarray(caps, jnp.int32)
-    misc_j = jnp.asarray([total, max_dest], jnp.int32)
-    interp = on_cpu()
-
-    def body(v):
-        return jax.lax.map(
-            lambda vr: _sg_encode_chain(
-                vr, in_ends_j, caps_j, misc_j, T=T, M=M,
-                acceleration=int(acceleration), interpret=interp,
-                min_match=4), v)
-
-    mapped = jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(AXIS, None, None),),
-        out_specs=(P(AXIS, None, None), P(AXIS, None), P(AXIS, None),
-                   P(AXIS, None), P(AXIS, None)),
-        check_vma=False,
-    )
-    out, blen, consumed, isz, osz = mapped(shard_rows(mesh, vals))
-    blen, consumed = np.asarray(blen), np.asarray(consumed)
-    isz, osz = np.asarray(isz), np.asarray(osz)
-    T = blen.shape[1]
-    maxb = int(blen[:L].max(initial=0))
-    maxb4 = -(-max(maxb, 4) // 4) * 4
-    rows = fetch_byte_rows(out[:L].reshape(L * T, -1)[:, :maxb4]) \
-        .reshape(L, T, maxb4)
-
-    results = []
-    for i, lst in enumerate(lists):
-        live = int((blen[i] >= 0).sum())
-        scripted = sg_mod.sg_scripted_replay(rows[i], blen[i], consumed[i],
-                                             isz[i], osz[i], live)
-        try:
-            results.append(sg_mod.sg_compress(
-                lst, caps, dest_size_compress=scripted))
-        except sg_mod._SgDeviceUnsupported:
-            results.append(sg_mod.sg_compress(lst, caps))
-    return results
-
 
 def sg_decompress_mesh(mesh: Mesh, comp_lists, out_caps):
     """Decompress many independent SG frames data-parallel over the mesh.
@@ -255,14 +156,14 @@ def sg_decompress_mesh(mesh: Mesh, comp_lists, out_caps):
     frame's iovec walk runs on host (header/zero-pad bookkeeping, exact
     errors); the block chains execute on device, sharded over the mesh
     and BUCKETED by chain layout, so heterogeneous frames still run the
-    device path (round-4; host fallback remains only for blocks beyond
-    the kernel envelope).
+    device path (host fallback remains only for blocks beyond the
+    kernel envelope, and is counted in ``tpu.HOST_FALLBACKS``).
 
     Returns a list of (total, out_bufs) per frame.
     """
     from .. import sg as sg_mod
     from ..kernels.decode_kernel import decode_blocks_sg
-    from ..tpu import fetch_byte_rows
+    from ..tpu import fetch_byte_rows, note_host_fallback
 
     if not comp_lists:
         return []
@@ -273,24 +174,21 @@ def sg_decompress_mesh(mesh: Mesh, comp_lists, out_caps):
     else:
         caps_per = [list(map(int, out_caps))] * len(comp_lists)
 
-    # host walk each frame with a collecting stand-in codec (conformant
-    # frames fill each slice exactly) to extract its block chain
+    # host walk of each frame with a stand-in codec that reads block
+    # sizes from the token streams, to extract its block chain
     chains, totals = [], []
     for bufs, caps in zip(comp_lists, caps_per):
         collected = []
-
-        def collector(comp, out_cap, dict_, _c=collected):
-            if len(comp) == 1 and comp == b"\x00":
-                return b""
-            _c.append((bytes(comp), out_cap))
-            return b"\x00" * out_cap
-
-        total, _ = sg_mod.sg_decompress(bufs, caps,
-                                        block_decompress=collector)
+        try:
+            total, _ = sg_mod.sg_decompress(
+                bufs, caps,
+                block_decompress=sg_mod._size_stand_in(collected))
+        except sg_mod._SgDeviceUnsupported:
+            collected, total = [], None      # host decode below
         chains.append(collected)
         totals.append(total)
 
-    # RAGGED chains (round-4): bucket frames by their chain layout —
+    # RAGGED chains: bucket frames by their chain layout --
     # each distinct layout gets its own mesh-parallel device pass (one
     # compiled kernel per layout; no host fallback for any bucket whose
     # blocks fit the kernel envelope)
@@ -344,6 +242,7 @@ def sg_decompress_mesh(mesh: Mesh, comp_lists, out_caps):
 
     for i, bufs in enumerate(comp_lists):
         if results[i] is None:   # >64KB blocks or kernel mismatch
+            note_host_fallback("SG frame outside the mesh decode envelope")
             results[i] = sg_mod.sg_decompress(bufs, caps_per[i])
     return results
 
@@ -356,8 +255,8 @@ def compress_frame_mesh(mesh: Mesh, data: bytes,
 
     The 64 KB window a shard's first block needs is just the preceding
     64 KB of *input*, so the host replicates it into the shard's rows and
-    the kernel seeds its table from it (LZ4_loadDict parity) — full
-    linked-window ratio with zero inter-chip communication.  Compressed
+    the scan matches into it (LZ4_loadDict parity) -- full linked-window
+    ratio with zero inter-device communication.  Compressed
     lengths come back with the rows (the all-gather is the shard_map
     output resharding) and the host concatenates payloads in frame order.
     """

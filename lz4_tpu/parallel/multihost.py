@@ -1,7 +1,7 @@
-"""Multi-host distribution: the codec over (hosts x chips).
+"""Multi-host distribution: the codec over (hosts x cards).
 
 The reference's only multi-core story is 8 independent OS processes
-(reference README.md:39-45); the TPU-native replacement is the JAX
+(reference README.md:39-45); the device replacement is the JAX
 multi-process runtime: every host calls :func:`initialize`, builds ONE
 global mesh over all devices, feeds its *local* shard of the work, and
 the only cross-host traffic is (a) GSPMD's dictionary replication and
@@ -11,8 +11,9 @@ ordered assembly needs them — SURVEY 5 "distributed backend").  Payload
 bytes never cross hosts: each host writes its own frame segment, exactly
 like the per-shard files of a real ingestion pipeline.
 
-Works on real multi-host TPU slices and, for CI, on N processes x M CPU
-devices (``JAX_PLATFORMS=cpu`` +
+Runs one process per GPU host (a process drives all the cards of its
+host; a second JAX process on a card would find its memory reserved)
+and, for CI, N processes x M CPU devices (``JAX_PLATFORMS=cpu`` +
 ``--xla_force_host_platform_device_count``): tests/test_multihost.py
 drives 2 processes x 4 devices on localhost.
 """
@@ -42,9 +43,11 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Join the JAX distributed runtime (jax.distributed.initialize).
 
-    On TPU pods the arguments are auto-detected from the environment; on
-    CPU/localhost CI they must be passed explicitly.  Must run before the
-    first JAX operation of the process.
+    Run one process per host, each driving that host's cards.  Nothing
+    in the environment describes the cluster, so the coordinator address
+    (``host:port`` of process 0), the process count and this process's
+    id are passed explicitly.  Must run before the first JAX operation of
+    the process.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
@@ -52,8 +55,8 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def global_mesh() -> Mesh:
-    """1-D mesh over ALL devices of ALL processes (ICI within a host,
-    DCN across hosts; GSPMD routes collectives accordingly)."""
+    """1-D mesh over ALL devices of ALL processes (NVLink within a host,
+    the network across hosts; XLA routes collectives accordingly)."""
     return Mesh(np.asarray(jax.devices()), (AXIS,))
 
 

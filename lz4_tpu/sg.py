@@ -139,7 +139,6 @@ def sg_compress(in_bufs: Sequence[bytes], out_caps: Sequence[int],
                 max_output: Optional[int] = None,
                 acceleration: int = 1,
                 dest_size_compress: DestSizeCompressor = _default_dest_size,
-                use_device: bool = False,
                 ) -> Tuple[int, int, List[bytes]]:
     """Compress a scatter-gather list into one frame across ``out_caps``.
 
@@ -147,21 +146,10 @@ def sg_compress(in_bufs: Sequence[bytes], out_caps: Sequence[int],
     (reference convention, lz4sg.c:701-764).  Negative codes raise SgError
     mirroring LZ4_compress_fast_sg_extState's validation (-1.. -4).
 
-    With ``use_device=True`` all block compression runs on TPU: the whole
-    buffer-pair walk executes inside one Pallas chain kernel (persistent
-    walk state + hash table across grid steps, window = previous input
-    buffer + current prefix exactly like the host path), and this function
-    only replays the walk to place headers/zero-pads/endmark.  Falls back
-    to the host codec for layouts outside the kernel envelope.
+    Compression runs on the host: each block is one destSize compression
+    (``dest_size_compress``, the exact host codec by default).  SG
+    *decode* has a device path (``sg_decompress(use_device=True)``).
     """
-    if use_device and dest_size_compress is _default_dest_size:
-        try:
-            scripted = _sg_device_scripted(in_bufs, out_caps, source_size,
-                                           max_output, acceleration)
-            return sg_compress(in_bufs, out_caps, source_size, max_output,
-                               acceleration, dest_size_compress=scripted)
-        except _SgDeviceUnsupported:
-            pass  # host path below handles every layout
     in_bufs = [bytes(b) for b in in_bufs]
     n_in, n_out = len(in_bufs), len(out_caps)
     if n_in == 0:
@@ -313,7 +301,9 @@ def sg_decompress(in_bufs: Sequence[bytes], out_caps: Sequence[int],
             return _sg_decompress_device(in_bufs, out_caps,
                                          compressed_size, max_output)
         except _SgDeviceUnsupported:
-            pass  # host path below handles every layout
+            # host path below handles every layout
+            from .tpu import note_host_fallback
+            note_host_fallback("SG chain outside the device envelope")
     in_bufs = [bytes(b) for b in in_bufs]
     n_in, n_out = len(in_bufs), len(out_caps)
     if n_in == 0:
@@ -428,111 +418,46 @@ class _SgDeviceUnsupported(Exception):
     """Layout outside the device kernel's envelope; take the host path."""
 
 
-def sg_chain_vals(in_bufs):
-    """Build the SG chain kernel's input layout for one list: val32 lanes
-    of ``zeros(64KB lead) | concat(in_bufs) | zeros(tail)`` plus the
-    cumulative input-end offsets (kernels/destsize_kernel.sg_encode_chain
-    contract).  Returns (vals_rows [R,128] device array, in_ends int32[n+1],
-    total)."""
-    import numpy as np
-
-    import jax.numpy as jnp
-    from .kernels.destsize_kernel import LEAD
-    from .kernels.encode_kernel import bytes_to_val32_rows
-
-    total = sum(len(b) for b in in_bufs)
-    in_ends = np.zeros(len(in_bufs) + 1, np.int64)
-    np.cumsum([len(b) for b in in_bufs], out=in_ends[1:])
-    W = 2 * spec.WINDOW_SIZE
-    padded = LEAD + total + W + 256
-    padded = -(-padded // 128) * 128
-    flat = np.zeros(padded, np.uint8)
-    flat[LEAD:LEAD + total] = np.frombuffer(b"".join(in_bufs), np.uint8)
-    packed = flat.view("<i4")[None, :]
-    vals = bytes_to_val32_rows(jnp.asarray(packed), padded)
-    return vals.reshape(padded // 128, 128), in_ends.astype(np.int32), total
-
-
-def sg_scripted_replay(rows, blen, consumed, isz, osz, live):
-    """DestSizeCompressor that replays per-step chain-kernel results into
-    the host SG walk.  Asserts, call by call, that the walk presents
-    exactly the source piece and capacity the kernel assumed — any
-    divergence raises _SgDeviceUnsupported and the caller falls back."""
-    steps = iter(range(live))
-
-    def scripted(src_piece, o_size, window, accel):
-        try:
-            t = next(steps)
-        except StopIteration:
-            raise _SgDeviceUnsupported() from None
-        if len(src_piece) != int(isz[t]) or o_size != int(osz[t]):
+def _size_stand_in(collected):
+    """A block codec for the host walk that decodes nothing: it records
+    (payload, decoded size) and returns that many placeholder bytes, the
+    size read from the block's token stream (block_np.
+    get_decompressed_size), so the walk advances exactly like a real
+    decode.  Blocks outside the device envelope raise
+    _SgDeviceUnsupported."""
+    def stand_in(comp, out_cap, dict_):
+        if len(comp) == 1 and comp == b"\x00":
+            return b""           # empty block: contributes nothing
+        if len(comp) > spec.SG_MAX_BLOCK_SIZE + 512:
             raise _SgDeviceUnsupported()
-        return int(consumed[t]), rows[t, :blen[t]].tobytes()
-
-    return scripted
-
-
-def _sg_device_scripted(in_bufs, out_caps, source_size, max_output,
-                        acceleration):
-    """Run the whole SG compression walk on device (one Pallas chain
-    kernel, kernels/destsize_kernel.sg_encode_chain) and return a scripted
-    DestSizeCompressor replaying its per-step results into the host walk.
-    """
-    import numpy as np
-
-    total = sum(len(b) for b in in_bufs)
-    if total == 0 or total > (1 << 28):
-        raise _SgDeviceUnsupported()   # int32 positions; keep headroom
-    if source_size is not None and source_size != total:
-        raise _SgDeviceUnsupported()   # partial-source walks stay on host
-    max_dest = sum(out_caps) if max_output is None else max_output
-
-    from .kernels.destsize_kernel import sg_encode_chain
-
-    vals_rows, in_ends, _ = sg_chain_vals(in_bufs)
-    out, blen, consumed, isz, osz = sg_encode_chain(
-        vals_rows, in_ends,
-        np.asarray(out_caps, np.int32), max_dest, acceleration)
-    blen, consumed = np.asarray(blen), np.asarray(consumed)
-    isz, osz = np.asarray(isz), np.asarray(osz)
-    live = int((blen >= 0).sum())
-    # one packed fetch of the block bytes (int32 byte lanes -> uint8),
-    # trimmed to live rows x the longest block (the link is the bottleneck)
-    from .tpu import fetch_byte_rows
-    rows = None
-    if live:
-        maxb = int(blen[:live].max(initial=0))
-        maxb4 = -(-max(maxb, 4) // 4) * 4
-        rows = fetch_byte_rows(out[:live, :maxb4])
-
-    return sg_scripted_replay(rows, blen, consumed, isz, osz, live)
+        try:
+            size = block_np.get_decompressed_size(comp)
+        except block_np.Lz4BlockError:
+            raise _SgDeviceUnsupported() from None
+        if size > out_cap:
+            raise _SgDeviceUnsupported()
+        collected.append((bytes(comp), size))
+        return b"\x00" * size
+    return stand_in
 
 
 def _sg_decompress_device(in_bufs, out_caps, compressed_size, max_output):
     """Device scatter-gather decode: walk the iovec list once on the host
-    with a collecting stand-in codec (conformant frames fill each slice
-    exactly, lz4sg.h:96-100), then run the whole chain through the
-    continuous-space Pallas kernel and slice the result.
+    with a stand-in codec that only reads each block's decoded size from
+    its token stream, then decode the whole chain into one continuous
+    device space and slice the result.
 
     Falls back (raising _SgDeviceUnsupported) for blocks beyond the
-    kernel's 64KB envelope or when the chain does not decode to the
-    collected sizes (non-conformant frame: host gives exact errors).
+    kernel's 64KB envelope, malformed blocks, or a chain that does not
+    decode to the walked sizes (the host gives exact errors).
     """
     import numpy as np
 
     collected = []
-
-    def collector(comp, out_cap, dict_):
-        if len(comp) == 1 and comp == b"\x00":
-            return b""           # empty block: contributes nothing
-        if out_cap > spec.SG_MAX_BLOCK_SIZE or \
-                len(comp) > spec.SG_MAX_BLOCK_SIZE + 512:
-            raise _SgDeviceUnsupported()
-        collected.append((bytes(comp), out_cap))
-        return b"\x00" * out_cap  # stand-in: conformant blocks fill exactly
+    size_stand_in = _size_stand_in(collected)
 
     total, _ = sg_decompress(in_bufs, out_caps, compressed_size,
-                             max_output, block_decompress=collector)
+                             max_output, block_decompress=size_stand_in)
     if not collected:
         return total, [bytes(bytearray(c)) for c in out_caps]
 
@@ -545,9 +470,8 @@ def _sg_decompress_device(in_bufs, out_caps, compressed_size, max_output):
 
     if max(sizes) > spec.WINDOW_SIZE:
         # large blocks (reference allows up to 4MB, lz4sg.c:544): run the
-        # whole chain through the ring-buffered stream kernel — its
-        # 128KB output ring always holds the 64KB match window, and
-        # linked=True carries it across block boundaries exactly like
+        # whole chain through the stream decoder -- linked=True carries
+        # the window across block boundaries exactly like
         # LZ4_decompress_safe_continue in the SG walk (lz4sg.c:611)
         from .kernels.decode_kernel import decode_stream
 

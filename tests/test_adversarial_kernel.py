@@ -1,6 +1,6 @@
 """Adversarial decode inputs vs the kernel: verdict parity with the host.
 
-Runs compiled on TPU, interpreted on CPU CI; the same property holds in
+Runs compiled on the GPU, interpreted on CPU CI; the same property holds in
 both: for every malformed/malicious stream the kernel must agree with the
 host oracle byte-for-byte on acceptance, output, and rejection (the
 reference's fuzzer.c:400-529 guarantee class).

@@ -1,131 +1,6 @@
-"""destSize encode kernel: capacity contract, token-boundary stop, consumed
-report, dict-prefix mode — checked against the host oracle's semantics and
-decodability (reference LZ4_compress_fast_destSize, lz4.c:809-830)."""
-
-import numpy as np
-import jax.numpy as jnp
-import pytest
-
-from lz4_tpu.kernels.destsize_kernel import encode_blocks_dest_size
-from lz4_tpu.kernels.encode_kernel import bytes_to_val32_rows
-from lz4_tpu.kernels.common import np_pack_rows
-from lz4_tpu.ops.block_np import decompress_block
-from lz4_tpu.utils.datagen import gen_buffer
-
-from . import oracle
-
-
-def run_destsize(buffers, caps, prefixes=None, min_match=4):
-    """Helper: returns [(consumed, block_bytes)] per buffer."""
-    NS = -(-max(len(p or b"") + len(b)
-                for p, b in zip(prefixes or [b""] * len(buffers),
-                                buffers)) // 128) * 128
-    NS = max(NS, 128)
-    rows = []
-    slens, wlens = [], []
-    for i, b in enumerate(buffers):
-        p = (prefixes[i] if prefixes else b"") or b""
-        rows.append(p + b)
-        slens.append(len(b))
-        wlens.append(len(p))
-    packed, _ = np_pack_rows(rows, NS)
-    val = bytes_to_val32_rows(jnp.asarray(packed), NS)
-    out, olen, consumed = encode_blocks_dest_size(
-        val, jnp.asarray(np.asarray(slens, np.int32)),
-        jnp.asarray(np.asarray(caps, np.int32)),
-        window_lens=jnp.asarray(np.asarray(wlens, np.int32)),
-        min_match=min_match)
-    out, olen, consumed = np.asarray(out), np.asarray(olen), \
-        np.asarray(consumed)
-    return [(int(consumed[i]),
-             bytes(out[i, :olen[i]].astype(np.uint8)))
-            for i in range(len(buffers))]
-
-
-@pytest.mark.parametrize("seed", [1, 2, 3])
-def test_destsize_contract(seed):
-    import random
-    rng = random.Random(seed)
-    bufs, caps = [], []
-    for i in range(12):
-        n = rng.randint(20, 30_000)
-        bufs.append(gen_buffer(n, rng.uniform(0.4, 0.95), seed * 50 + i))
-        caps.append(rng.randint(10, max(12, n)))
-    res = run_destsize(bufs, caps)
-    for (consumed, block), src, cap in zip(res, bufs, caps):
-        assert len(block) <= cap, "capacity overrun"
-        assert 0 <= consumed <= len(src)
-        if consumed:
-            # the block decodes to exactly the consumed prefix
-            assert decompress_block(block, consumed) == src[:consumed]
-        if cap >= len(src) + len(src) // 255 + 32:
-            assert consumed == len(src), "unbounded cap must consume all"
-
-
-def test_destsize_tiny_capacities():
-    src = gen_buffer(1000, 0.6, 7)
-    res = run_destsize([src] * 6, [1, 2, 5, 6, 10, 17])
-    for (consumed, block), cap in zip(res, [1, 2, 5, 6, 10, 17]):
-        assert len(block) <= cap
-        if consumed:
-            assert decompress_block(block, consumed) == src[:consumed]
-    # cap=1: only a bare token fits -> 0 literals is legal but useless;
-    # host oracle consumes 0 there too
-    assert res[0][0] == 0
-    # cap>=2 fits token + 1 literal
-    assert res[1][0] >= 1
-
-
-def test_destsize_prefix_window():
-    """With a dictionary prefix, the same capacity packs more source."""
-    base = gen_buffer(40_000, 0.8, 11)
-    prefix, src = base[:20_000], base[15_000:]
-    cap = 4_000
-    (c_plain, b_plain), = run_destsize([src], [cap])
-    (c_dict, b_dict), = run_destsize([src], [cap], prefixes=[prefix])
-    assert len(b_plain) <= cap and len(b_dict) <= cap
-    assert c_dict >= c_plain  # window can only help
-    # dict-mode block decodes with the prefix as the window
-    assert decompress_block(b_dict, c_dict, dict_=prefix) == src[:c_dict]
-
-
-def test_destsize_reference_decodes():
-    """The reference C library decodes destSize output (usingDict for the
-    prefix variant)."""
-    if not oracle.available():
-        pytest.skip("no reference lib")
-    src = gen_buffer(30_000, 0.7, 21)
-    (consumed, block), = run_destsize([src], [8_000])
-    assert 0 < consumed < len(src)
-    got = oracle.ref_decompress(block, consumed)
-    assert got == src[:consumed]
-
-
-def test_destsize_respects_min_match():
-    src = gen_buffer(20_000, 0.7, 31)
-    (c, block), = run_destsize([src], [len(src) * 2], min_match=12)
-    assert c == len(src)
-    assert decompress_block(block, c) == src
-    i, end = 0, len(block)
-    while i < end:
-        tok = block[i]; i += 1
-        ll = tok >> 4
-        if ll == 15:
-            while True:
-                b = block[i]; i += 1; ll += b
-                if b != 255:
-                    break
-        i += ll
-        if i >= end:
-            break
-        i += 2
-        ml = tok & 15
-        if ml == 15:
-            while True:
-                b = block[i]; i += 1; ml += b
-                if b != 255:
-                    break
-        assert ml + 4 >= 12
+"""Device destSize decode: the resumable token-boundary stop of the decode
+kernel (reference lz4.c:1161-1163, 1316-1319), resumed with the produced
+bytes as the dictionary window."""
 
 
 def test_device_dest_size_decode_resume():

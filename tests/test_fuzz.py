@@ -179,7 +179,7 @@ def test_fuzz_linked_device_chain(seed):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_device_encode_reference_decodes(seed):
-    """Device-path fuzz lane (VERDICT r3 #8): random blocks through the
+    """Device-path fuzz lane: random blocks through the
     ENCODE KERNEL, each decoded by the reference C library per cycle —
     the kernel analog of fuzzer.c's cross-decoding battery.  Batched so
     one kernel launch covers the cycle's whole case set."""

@@ -1,4 +1,4 @@
-"""Pallas kernel tests (CPU interpret mode; real-TPU runs live in bench.py).
+"""Kernel tests (CPU interpret mode; tests/test_gpu.py runs them compiled).
 
 The kernels must match the host oracle bit-for-bit on decode and produce
 reference-decodable output on encode.
@@ -105,7 +105,7 @@ def test_encode_kernel_roundtrip_and_ratio():
 
 
 def test_encode_then_decode_kernels():
-    """Full TPU-path round trip: encode kernel -> decode kernel."""
+    """Full device-path round trip: encode kernel -> decode kernel."""
     data = [gen_buffer(NS, 0.7, 70 + i) for i in range(4)]
     packed, lens = np_pack_rows(data, NS)
     val = bytes_to_val32_rows(jnp.array(packed), NS)

@@ -2,8 +2,9 @@
 localhost, one global mesh, shard-mapped compression with a compressed-
 length all-gather, per-process frame segments spliced into ONE frame.
 
-This is the CI stand-in for a real multi-host TPU slice (SURVEY 2.5/5
-distributed backend; the reference has no distribution layer at all).
+This is the CI stand-in for several GPU hosts, one process each
+(SURVEY 2.5/5 distributed backend; the reference has no distribution
+layer at all).
 """
 
 import os

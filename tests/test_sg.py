@@ -309,75 +309,10 @@ def test_device_sg_decodes_reference_frames():
     assert b"".join(outs_dev)[:len(data)] == data
 
 
-# ---------------------------------------------------------------------------
-# device SG *compress* (the chain kernel walk)
-# ---------------------------------------------------------------------------
-
-def test_sg_compress_device_16x4k():
-    """sgtest 16x4KB -> 17x4KB matrix, all block compression on device; the
-    frame must decode via our SG decoder, plain LZ4F, AND the reference."""
-    ins = split_buffers(DATA64K, [4096] * 16)
-    caps = [4096] * 17
-    total, consumed, outs = sg_compress(ins, caps, use_device=True)
-    assert consumed == len(DATA64K) and total > 0
-    # mirrored-list decode
-    got_total, got = sg_decompress(outs, [4096] * 16, compressed_size=total)
-    assert got_total == len(DATA64K)
-    assert b"".join(got) == DATA64K
-    # plain LZ4F decodability (sgtest.c:258-354 property)
-    frame = concat_filled(outs, caps, total)
-    content, _ = decompress_frame(frame)
-    assert content == DATA64K
-    # reference decodes it too
-    assert oracle.ref_decompress_frame(frame, len(DATA64K)) == DATA64K
-
-
-def test_sg_compress_device_fuzz_lists():
-    rng = random.Random(0xD57)
-    for cycle in range(4):
-        blob = gen_buffer(rng.randint(10_000, 400_000),
-                          rng.uniform(0.5, 0.9), 900 + cycle)
-        ins, pos = [], 0
-        while pos < len(blob):
-            n = min(rng.randint(1, 80_000), len(blob) - pos)
-            ins.append(blob[pos:pos + n])
-            pos += n
-        caps = [rng.randint(spec.SG_MIN_OUT_BUF, 90_000) for _ in range(30)]
-        caps[0] = max(caps[0], spec.SG_MIN_FIRST_OUT)
-        total, consumed, outs = sg_compress(ins, caps, use_device=True)
-        host_total, host_consumed, _ = sg_compress(ins, caps)
-        if total == 0:
-            assert host_total == 0 or host_consumed < len(blob)
-            continue
-        got_total, got = sg_decompress(outs, [len(b) for b in ins],
-                                       compressed_size=total)
-        assert got_total == consumed
-        assert b"".join(got)[:consumed] == blob[:consumed]
-
-
-def test_sg_compress_device_beats_reference_size():
-    ins = split_buffers(DATA64K, [4096] * 16)
-    caps = [4096] * 17
-    ret, _, _ = oracle.ref_sg_compress(ins, caps)
-    total, _, _ = sg_compress(ins, caps, use_device=True)
-    assert 0 < total <= ret * 1.02  # at worst ~2% of the reference C
-
-
-def test_sg_compress_device_fallback_layouts():
-    """Layouts outside the kernel envelope silently take the host path."""
-    data = gen_buffer(2_000, 0.6, 5)
-    # partial-source walk (source_size < total) stays on host
-    t, c, outs = sg_compress([data], [4096], source_size=1_000,
-                             use_device=True)
-    assert c == 1_000
-    got_total, got = sg_decompress(outs, [1_000], compressed_size=t)
-    assert b"".join(got)[:1_000] == data[:1_000]
-
-
 def test_device_sg_large_blocks_stream_path():
     """SG chains with >64KB blocks (reference allows 4MB, lz4sg.c:544)
-    decode on device through the ring-buffered stream kernel instead of
-    bailing to the host (VERDICT r2 missing #3)."""
+    decode on device through the stream decoder instead of bailing to
+    the host."""
     # few-sequence data keeps CPU-interpret cost bounded; block sizes
     # straddle the 64KB kernel envelope
     data = gen_buffer(1_400_000, 0.985, 321)
@@ -399,13 +334,11 @@ def test_device_sg_large_blocks_stream_path():
 
 
 def test_sg_mesh_roundtrip():
-    """SG lists over a device mesh (the reference's 8-process multi-core
-    SG analog, README.md:39-45): uniform 4-buffer lists sharded across
-    the 8-device virtual mesh, compressed by the chain kernel per list,
-    decoded back sharded — results must match the single-list paths and
-    stay LZ4F-decodable."""
-    from lz4_tpu.parallel.mesh import (default_mesh, sg_compress_mesh,
-                                       sg_decompress_mesh)
+    """SG frames over a device mesh (the reference's 8-process multi-core
+    SG analog, README.md:39-45): uniform 4-buffer lists compressed on the
+    host, decoded sharded across the 8-device virtual mesh — results must
+    match the single-list paths and stay LZ4F-decodable."""
+    from lz4_tpu.parallel.mesh import default_mesh, sg_decompress_mesh
 
     mesh = default_mesh(8)
     sizes = [2048] * 4
@@ -414,14 +347,13 @@ def test_sg_mesh_roundtrip():
              for i in range(L)]
     caps = [2048 + 256] * 5
 
-    results = sg_compress_mesh(mesh, lists, caps)
-    assert len(results) == L
     comp_lists = []
-    for i, (total, consumed, outs) in enumerate(results):
+    for i, lst in enumerate(lists):
+        total, consumed, outs = sg_compress(lst, caps)
         assert consumed == 8192 and total > 0
         # plain LZ4F decodability of every frame (sgtest.c:258-354)
         content, _ = decompress_frame(concat_filled(outs, caps, total))
-        assert content == b"".join(lists[i])
+        assert content == b"".join(lst)
         comp_lists.append(trim_to_filled(outs, caps, total))
 
     decoded = sg_decompress_mesh(mesh, comp_lists, sizes)
@@ -431,14 +363,11 @@ def test_sg_mesh_roundtrip():
 
 
 def test_sg_mesh_ragged_layouts(monkeypatch):
-    """RAGGED SG lists over the mesh (VERDICT r3 #10): three distinct
-    buffer layouts round-trip through the device chain kernels — layout
-    buckets, not host fallback (asserted by failing the fallback
-    entry points)."""
+    """RAGGED SG frames over the mesh: three distinct buffer layouts
+    decode through the device chains — layout buckets, not host
+    fallback (asserted by failing the fallback entry point)."""
     from lz4_tpu import sg as sg_mod
-    from lz4_tpu.parallel import mesh as mesh_mod
-    from lz4_tpu.parallel.mesh import (default_mesh, sg_compress_mesh,
-                                       sg_decompress_mesh)
+    from lz4_tpu.parallel.mesh import default_mesh, sg_decompress_mesh
 
     mesh = default_mesh(8)
     layouts = [[2048, 2048], [1024, 3072], [4096]]
@@ -449,29 +378,18 @@ def test_sg_mesh_ragged_layouts(monkeypatch):
         lists.append(split_buffers(gen_buffer(4096, 0.8, 9_000 + i), lay))
         all_caps.append(caps_per[i % 3])
 
-    real_compress = sg_mod.sg_compress
-    real_decompress = sg_mod.sg_decompress
+    comp_lists = []
+    for i, lst in enumerate(lists):
+        total, consumed, outs = sg_compress(lst, all_caps[i])
+        assert consumed == 4096 and total > 0
+        comp_lists.append(trim_to_filled(outs, all_caps[i], total))
 
-    def guard_compress(lst, caps, dest_size_compress=None, **kw):
-        assert dest_size_compress is not None, "host-fallback compress!"
-        return real_compress(lst, caps,
-                             dest_size_compress=dest_size_compress, **kw)
+    real_decompress = sg_mod.sg_decompress
 
     def guard_decompress(bufs, caps, block_decompress=None, **kw):
         assert block_decompress is not None, "host-fallback decompress!"
         return real_decompress(bufs, caps,
                                block_decompress=block_decompress, **kw)
-
-    monkeypatch.setattr(sg_mod, "sg_compress", guard_compress)
-    results = sg_compress_mesh(mesh, lists, all_caps)
-    assert len(results) == len(lists)
-    comp_lists = []
-    for i, (total, consumed, outs) in enumerate(results):
-        assert consumed == 4096 and total > 0
-        content, _ = decompress_frame(
-            concat_filled(outs, all_caps[i], total))
-        assert content == b"".join(lists[i])
-        comp_lists.append(trim_to_filled(outs, all_caps[i], total))
 
     monkeypatch.setattr(sg_mod, "sg_decompress", guard_decompress)
     decoded = sg_decompress_mesh(mesh, comp_lists,

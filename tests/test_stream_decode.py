@@ -19,8 +19,8 @@ SLOW = os.environ.get("LZ4TPU_SLOW_TESTS", "0") == "1"
 
 def test_stream_decode_independent_256k():
     # interpret-mode cost is per-sequence: use few-sequence (highly
-    # compressible) data at CI scale; bench.py and the REAL_TPU path
-    # exercise the dense-sequence regime on hardware
+    # compressible) data at CI scale; chip_smoke.py and bench.py
+    # exercise the dense-sequence regime on the GPU
     data = gen_buffer(300_000, 0.97, 55)
     BS = 262144
     blocks = [data[i:i + BS] for i in range(0, len(data), BS)]
@@ -69,8 +69,8 @@ def test_reference_cli_files_decode_on_device(args):
 def test_stream_decode_short_midstream_block():
     """A flushed (shorter than block_size) mid-stream block is legal LZ4F:
     every block must keep its full block_size output cap — a draining
-    capacity pool starved later blocks and failed valid frames (ADVICE
-    r2).  Also covers the frame path end-to-end."""
+    capacity pool starved later blocks and failed valid frames.  Also
+    covers the frame path end-to-end."""
     import struct
 
     from lz4_tpu import spec as _spec
@@ -131,9 +131,8 @@ def test_stream_decode_corruption_verdict_parity():
 
 
 @pytest.mark.skipif(not oracle.available() or not SLOW,
-                    reason="8MB-block shapes crawl under interpret; the "
-                           "real-TPU path is exercised by bench/verify "
-                           "(LZ4TPU_SLOW_TESTS=1 enables)")
+                    reason="8MB-block shapes crawl under interpret; "
+                           "LZ4TPU_SLOW_TESTS=1 enables")
 def test_legacy_device_decode():
     """Reference -l (legacy 0x184C2102, 8MB blocks) files decode through
     the stream kernel (tpu.decompress_legacy_device)."""

@@ -262,7 +262,7 @@ def test_device_linked_partial_middle_block_falls_back():
 
 
 def test_device_linked_multigroup_window_handoff(monkeypatch):
-    """The grouped pipelined decode path (round 5): a linked chain longer
+    """The grouped pipelined decode path: a linked chain longer
     than one dispatch group must hand the 64KB window between groups as
     a device-side slice (decode_blocks_linked init_window) and reassemble
     in order.  Group size is shrunk so CI exercises 3 groups + padding."""
